@@ -1,0 +1,172 @@
+"""Read-only access to checkpoints written by ``dla_tpu.checkpoint``.
+
+Format 2 (``index.json``): whole leaves carry ``{file, shape, dtype}``;
+sharded leaves carry ``{shape, dtype, shards: [{file, index: [[start,
+stop], ...]}]}``, one ``.npy`` per distinct shard region. Format-1
+checkpoints (whole-file only) are the one-shard case. The port reads
+them into host numpy trees; writing checkpoints comes with training.
+
+numpy has no bfloat16: a bf16 leaf (stored by npy as 2-byte voids) is
+returned widened to float32, which is exact; the caller casts it back.
+"""
+from __future__ import annotations
+
+import json
+import math
+from pathlib import Path
+from typing import Any, Dict, Optional, Tuple
+
+import numpy as np
+
+SEP = "."
+
+
+def _as_logical(arr: np.ndarray, dtype_str: str) -> np.ndarray:
+    """Undo npy's void encoding of dtypes numpy lacks. bfloat16 is the
+    top half of a float32, so shifting the raw bits widens it exactly."""
+    if arr.dtype.kind != "V":
+        return arr
+    if dtype_str != "bfloat16":
+        raise NotImplementedError(
+            f"checkpoint leaf dtype {dtype_str!r} has no numpy counterpart")
+    bits = np.ascontiguousarray(arr).view(np.uint16).astype(np.uint32)
+    return (bits << 16).view(np.float32)
+
+
+def _normalize_index(idx, shape) -> Tuple[Tuple[int, int], ...]:
+    """Index (tuple of slices) -> ((start, stop), ...) per dim."""
+    out = []
+    for sl, dim in zip(idx, shape):
+        start = 0 if sl.start is None else int(sl.start)
+        stop = dim if sl.stop is None else int(sl.stop)
+        out.append((start, stop))
+    return tuple(out)
+
+
+class _ShardReader:
+    """Assemble arbitrary slices of a logical array from its shard files.
+
+    Files are opened with mmap, so reading a slice touches only the bytes
+    that overlap it."""
+
+    def __init__(self, ckpt_dir: Path, meta: Dict[str, Any]):
+        self.dir = ckpt_dir
+        self.shape = tuple(meta["shape"])
+        self.dtype_str = str(meta["dtype"])
+        self.shards = meta["shards"]
+        self._by_region = {
+            tuple(tuple(se) for se in sh["index"]): sh["file"]
+            for sh in self.shards}
+
+    @classmethod
+    def from_meta(cls, ckpt_dir: Path, meta: Dict[str, Any]) -> "_ShardReader":
+        """Reader for either index format: a format-1 whole-file leaf is
+        exactly the one-shard case."""
+        if "shards" in meta:
+            return cls(ckpt_dir, meta)
+        whole = dict(meta)
+        whole["shards"] = [{
+            "file": meta["file"],
+            "index": [[0, d] for d in meta["shape"]],
+        }]
+        return cls(ckpt_dir, whole)
+
+    def _load(self, fname: str) -> np.ndarray:
+        return _as_logical(np.load(self.dir / fname, mmap_mode="r"),
+                           self.dtype_str)
+
+    def read(self, idx) -> np.ndarray:
+        """idx: tuple of slices into the global shape."""
+        region = _normalize_index(idx, self.shape)
+        exact = self._by_region.get(region)
+        if exact is not None:  # fast path: slice == one shard file
+            return np.asarray(self._load(exact))
+        out_shape = tuple(stop - start for start, stop in region)
+        out = None
+        filled = 0
+        for sh in self.shards:
+            sh_region = [tuple(se) for se in sh["index"]]
+            dst, src = [], []
+            empty = False
+            for (want_s, want_e), (have_s, have_e) in zip(region, sh_region):
+                lo, hi = max(want_s, have_s), min(want_e, have_e)
+                if lo >= hi:
+                    empty = True
+                    break
+                dst.append(slice(lo - want_s, hi - want_s))
+                src.append(slice(lo - have_s, hi - have_s))
+            if empty:
+                continue
+            arr = self._load(sh["file"])
+            if out is None:
+                out = np.empty(out_shape, arr.dtype)
+            out[tuple(dst)] = arr[tuple(src)]
+            filled += math.prod(s.stop - s.start for s in dst)
+        if out is None or filled < math.prod(out_shape):
+            raise ValueError(
+                f"shard files do not cover requested region {region} "
+                f"of shape {self.shape}")
+        return out
+
+    def full(self) -> np.ndarray:
+        return self.read(tuple(slice(0, d) for d in self.shape))
+
+
+def _latest_tag(root: Path) -> Optional[str]:
+    """The tag the ``latest`` pointer names, else the newest step_*."""
+    latest = root / "latest"
+    if latest.is_file():
+        tag = latest.read_text().strip()
+        if (root / tag).is_dir():
+            return tag
+    steps = sorted(d.name for d in root.glob("step_*") if d.is_dir())
+    return steps[-1] if steps else None
+
+
+def load_tree_numpy(ckpt_dir, prefix: Optional[str] = None
+                    ) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """Load a checkpoint's leaves as host numpy arrays, rebuilt into nested
+    dicts from their path-encoded names. Returns (tree, aux)."""
+    ckpt = resolve_checkpoint_dir(ckpt_dir)
+    with (ckpt / "index.json").open() as fh:
+        index = json.load(fh)
+    tree: Dict[str, Any] = {}
+    for path, meta in index["leaves"].items():
+        if prefix is not None:
+            if not path.startswith(prefix + SEP):
+                continue
+            rel = path[len(prefix) + 1:]
+        else:
+            rel = path
+        node = tree
+        keys = rel.split(SEP)
+        for k in keys[:-1]:
+            node = node.setdefault(k, {})
+        node[keys[-1]] = _ShardReader.from_meta(ckpt, meta).full()
+    return tree, index.get("aux", {})
+
+
+def resolve_checkpoint_dir(path) -> Path:
+    """Follow a ``latest`` pointer if ``path`` is a checkpoint root or ends
+    in /latest (configs point at ``checkpoints/X/latest``)."""
+    p = Path(path)
+    if p.name == "latest":
+        root = p.parent
+        tag = _latest_tag(root)
+        if tag is None:
+            raise FileNotFoundError(f"No checkpoint under {root}")
+        return root / tag
+    if (p / "index.json").is_file():
+        return p
+    tag = _latest_tag(p) if p.is_dir() else None
+    if tag:
+        return p / tag
+    raise FileNotFoundError(f"No checkpoint at {p}")
+
+
+def is_checkpoint_path(path) -> bool:
+    try:
+        resolve_checkpoint_dir(path)
+        return True
+    except (FileNotFoundError, NotADirectoryError):
+        return False

@@ -1,0 +1,362 @@
+"""Model hyperparameter schema + registry of presets.
+
+A copy of ``dla_tpu/models/config.py`` (the port never imports the JAX
+package, whose ``__init__`` loads jax): the same dataclass, validation,
+presets and HF-id aliases, so a config dict round-trips between the two
+packages unchanged. Fields that only the JAX package acts on (mesh,
+pipeline, remat, context parallelism) are kept so checkpoints' stored
+``model_config`` loads here verbatim.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Optional
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    vocab_size: int
+    hidden_size: int
+    intermediate_size: int
+    num_layers: int
+    num_heads: int
+    num_kv_heads: int
+    head_dim: Optional[int] = None      # defaults to hidden_size // num_heads
+    rope_theta: float = 10000.0
+    # HF ``rope_scaling`` dict for extended-context checkpoints:
+    # {"rope_type": "llama3", factor, low_freq_factor, high_freq_factor,
+    #  original_max_position_embeddings} (llama-3.1/3.2) or
+    # {"rope_type": "linear", factor} — ops/rotary.py:_scale_inv_freq.
+    rope_scaling: Optional[Dict[str, Any]] = None
+    rms_norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    max_seq_length: int = 2048
+    # architecture family:
+    #   "llama"  pre-RMSNorm sequential block, gated-SiLU MLP, full RoPE
+    #            (llama-2/-3, mistral)
+    #   "phi"    parallel residual block (shared input LayerNorm feeding
+    #            both attention and MLP), biased projections, GELU MLP,
+    #            partial RoPE (phi-2 / phi-1.5)
+    #   "gemma"  llama block shape with gated GELU-tanh MLP, embeddings
+    #            scaled by sqrt(hidden) on read, tied unembedding, and
+    #            (1+w) RMSNorm — the +1 folds into the stored weights at
+    #            import/init so the norm path stays shared (gemma-1)
+    #   "gemma2" gemma plus: post-attention and post-feedforward norms
+    #            (four RMSNorms per block), attention-score and final
+    #            -logit softcapping, query_pre_attn_scalar softmax scale,
+    #            and alternating-layer sliding window (pattern 2)
+    arch: str = "llama"
+    # fraction of head_dim that rotates (phi-2: 0.4); 1.0 = full RoPE
+    rotary_pct: float = 1.0
+    # biases on the q/k/v projections within the llama block layout —
+    # the qwen2 family (phi carries biases on every projection already)
+    attention_bias: bool = False
+    # mistral-style sliding-window attention (HF ``sliding_window``):
+    # each token attends kv positions in (pos - window, pos]. None/0 =
+    # full causal. Applies to every attention path: flash, xla, decode,
+    # and ring context parallelism (absolute-position mask term rotates
+    # with kv). Ulysses CP is the one refusal — Transformer.__init__
+    # raises when both are set under an active sequence mesh (the mesh
+    # isn't known here, and context_parallel is a harmless default
+    # otherwise).
+    sliding_window: Optional[int] = None
+    # Alternating-layer SWA (gemma-2/-3): layer l uses the sliding
+    # window iff (l + 1) % pattern != 0 — pattern 2 = every other layer
+    # windowed starting at layer 0 (HF Gemma2's is_sliding), pattern 1 =
+    # uniform (every layer windowed when sliding_window is set).
+    sliding_window_pattern: int = 1
+    # gemma-2 softcaps: scores <- cap * tanh(scores / cap) before the
+    # softmax (attn) / at the unembedding (final). 0 = off.
+    attn_logit_softcap: float = 0.0
+    final_logit_softcap: float = 0.0
+    # gemma-2 attention scale: softmax scale = query_pre_attn_scalar
+    # ** -0.5 (HF Gemma2Config; 27B uses hidden/num_heads != head_dim).
+    # None = the usual head_dim ** -0.5.
+    query_pre_attn_scalar: Optional[int] = None
+    # numerics
+    dtype: str = "bfloat16"             # activation dtype
+    param_dtype: str = "float32"        # master param dtype
+    # remat: "none" | "full" | "dots"  (jax.checkpoint policy per block)
+    remat: str = "full"
+    # attention backend: "xla" (fused einsum) | "flash" (pallas kernel,
+    # used on the full-sequence path when shapes allow; decode/packed
+    # paths always use xla)
+    attention: str = "xla"
+    # KV-cache storage dtype for autoregressive decode: "bfloat16"
+    # (stores in the activation dtype) | "int8" (per-position per-head
+    # symmetric quantization with fp scales — halves the cache's HBM
+    # traffic on the bandwidth-bound decode loop; dequantize fuses into
+    # the attention einsum). Training/prefill attention is unaffected.
+    kv_cache_dtype: str = "bfloat16"
+    # Pallas decode-attention kernel selection: "auto" engages it for
+    # int8 caches (where in-VMEM dequant is the measured win); "on"
+    # additionally routes bf16 caches through it (fill-bounded reads vs
+    # the XLA einsum's full-S reads — sweepable per chip); "off" forces
+    # the XLA decode_attention path everywhere.
+    # Eligibility (transformer.decode_step): head_dim % 128 == 0 (lane
+    # alignment), num_heads/num_kv_heads <= the kernel's GQA group cap,
+    # and no multi-device auto mesh. An ineligible model falls back to
+    # the XLA path — with int8 KV that path re-materializes a bf16 cache
+    # copy per layer per step, so int8 + ineligible is SLOWER than bf16
+    # (logged once per shape at decode time).
+    decode_kernel: str = "auto"
+    # flash kernel tile sizes (0 = the kernel's measured default, 512).
+    # 512-wide blocks measured ~1.8x faster than 128 on v5e; exposed so
+    # new chip generations / unusual shapes can retune without a fork.
+    flash_block_q: int = 0
+    flash_block_k: int = 0
+    # context parallelism over the `sequence` mesh axis (long-context):
+    # "ring" (ppermute KV rotation, any head count) | "ulysses" (head
+    # all-to-all, needs kv_heads % seq_axis == 0). Active only when the
+    # ambient mesh has sequence > 1; decode paths always run unsharded.
+    context_parallel: str = "ring"
+    # GPipe microbatch count when the mesh has stage > 1 (pipeline
+    # parallelism). 0 = auto (targets 4x the stage count, see
+    # ops.pipeline.resolve_microbatches). More microbatches shrink the
+    # (S-1)/(M+S-1) bubble at the cost of smaller per-stage matmuls;
+    # batch must be divisible by it.
+    pipeline_microbatches: int = 0
+    # Interleaved/circular pipeline (virtual stages): each physical
+    # stage owns V round-robin layer blocks and microbatches traverse
+    # the ring V times — bubble (S-1)/(V*S + S - 1) with only S
+    # microbatches of activation in flight (vs needing M = V*S
+    # microbatches for the same bubble under plain GPipe). Requires
+    # num_layers % (stage * V) == 0; M is pinned to the stage count.
+    pipeline_interleave: int = 1
+    # storage hint for the interleaved schedule: when > 1 (and
+    # pipeline_interleave > 1) the stacked layer dim of every layer/LoRA
+    # leaf is stored block-major [V, S, L/(S*V), ...] — a row-major
+    # reshape of the canonical [L] stack — so the circular schedule's
+    # round-robin block ownership is stage-shard-local (no per-step
+    # cross-stage weight reshard). The config loader sets this from
+    # hardware.mesh.stage; couples param storage SHAPE (not order) to
+    # the stage count — cross-topology moves are a free reshape via
+    # Transformer.to_canonical_layout/to_storage_layout.
+    pipeline_stages: int = 0
+    # Mixture-of-Experts (beyond-reference capability; makes the
+    # reserved `expert` mesh axis real — ops/moe.py). 0 = dense MLP.
+    # llama arch only; top-k routing with GShard capacity dispatch.
+    num_experts: int = 0
+    num_experts_per_token: int = 2
+    moe_capacity_factor: float = 1.25
+    # GShard token-group size: capacity is enforced per group of this
+    # many tokens, keeping dispatch memory/FLOPs O(T) at long context
+    moe_group_size: int = 512
+    moe_aux_weight: float = 0.01      # switch load-balance loss weight
+    moe_z_weight: float = 0.001       # router z-loss weight
+    # LoRA (the reference's model.lora block, advertised but never wired —
+    # reference base_model.py:45-49 dead code, SURVEY.md sec 2.5; here it
+    # is functional). lora_r == 0 disables. Adapters are a separate
+    # trainable pytree (Transformer.init_lora); base params stay frozen.
+    lora_r: int = 0
+    lora_alpha: float = 32.0
+    lora_dropout: float = 0.0
+    lora_targets: tuple = ("wq", "wk", "wv", "wo")
+
+    def __post_init__(self):
+        if self.kv_cache_dtype not in ("bfloat16", "int8"):
+            raise ValueError(
+                f"kv_cache_dtype must be 'bfloat16' or 'int8', got "
+                f"{self.kv_cache_dtype!r} — a typo here would silently "
+                "run the full-precision cache")
+        if self.decode_kernel not in ("auto", "on", "off"):
+            raise ValueError(
+                f"decode_kernel must be 'auto', 'on' or 'off', got "
+                f"{self.decode_kernel!r} — a typo here would silently "
+                "fall back to the XLA decode path")
+        if self.num_experts > 0:
+            if self.arch != "llama":
+                raise ValueError(
+                    f"MoE (num_experts={self.num_experts}) is implemented "
+                    f"for the llama block only, not arch='{self.arch}'")
+            if self.lora_r > 0:
+                ffn = {"w_gate", "w_up", "w_down", "fc1", "fc2"}
+                bad = ffn & set(self.lora_targets)
+                if bad:
+                    raise ValueError(
+                        f"LoRA targets {sorted(bad)} are dense-MLP "
+                        f"matrices; with num_experts > 0 restrict "
+                        f"lora_targets to attention projections")
+
+    @property
+    def head_dim_(self) -> int:
+        return self.head_dim or self.hidden_size // self.num_heads
+
+    @property
+    def rotary_dim_(self) -> int:
+        """Rotated slice of each head; even, as rotate_half requires."""
+        rd = int(self.head_dim_ * self.rotary_pct)
+        rd -= rd % 2
+        if rd <= 0:
+            raise ValueError(
+                f"rotary_pct {self.rotary_pct} rotates {rd} of "
+                f"{self.head_dim_} head dims; needs at least 2")
+        return rd
+
+    @classmethod
+    def from_dict(cls, d: Dict[str, Any]) -> "ModelConfig":
+        fields = {f.name for f in dataclasses.fields(cls)}
+        d = {k: v for k, v in d.items() if k in fields}
+        if "lora_targets" in d:
+            d["lora_targets"] = tuple(d["lora_targets"])
+        return cls(**d)
+
+    def to_dict(self) -> Dict[str, Any]:
+        return dataclasses.asdict(self)
+
+
+# ---------------------------------------------------------------------------
+# Registry: name -> ModelConfig. Names accepted anywhere the reference
+# accepts an HF repo id (model_name_or_path config keys).
+# ---------------------------------------------------------------------------
+
+_REGISTRY: Dict[str, ModelConfig] = {}
+
+
+def register_model(name: str, cfg: ModelConfig) -> None:
+    _REGISTRY[name.lower()] = cfg
+
+
+def get_model_config(name: str, **overrides: Any) -> ModelConfig:
+    key = name.lower()
+    if key not in _REGISTRY:
+        raise KeyError(
+            f"Unknown model preset '{name}'. Known: {sorted(_REGISTRY)}")
+    cfg = _REGISTRY[key]
+    return dataclasses.replace(cfg, **overrides) if overrides else cfg
+
+
+def known_models() -> Dict[str, ModelConfig]:
+    return dict(_REGISTRY)
+
+
+register_model("llama2-7b", ModelConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=11008,
+    num_layers=32, num_heads=32, num_kv_heads=32, max_seq_length=4096))
+register_model("llama2-13b", ModelConfig(
+    vocab_size=32000, hidden_size=5120, intermediate_size=13824,
+    num_layers=40, num_heads=40, num_kv_heads=40, max_seq_length=4096))
+register_model("llama2-70b", ModelConfig(
+    vocab_size=32000, hidden_size=8192, intermediate_size=28672,
+    num_layers=80, num_heads=64, num_kv_heads=8, max_seq_length=4096))
+register_model("mistral-7b", ModelConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, max_seq_length=8192,
+    sliding_window=4096))  # HF config.json sliding_window (mistral v0.1)
+register_model("gemma-2b", ModelConfig(
+    vocab_size=256000, hidden_size=2048, intermediate_size=16384,
+    num_layers=18, num_heads=8, num_kv_heads=1, head_dim=256,
+    rms_norm_eps=1e-6, tie_embeddings=True, max_seq_length=8192,
+    arch="gemma"))  # HF google/gemma-2b config.json (MQA)
+register_model("gemma-7b", ModelConfig(
+    vocab_size=256000, hidden_size=3072, intermediate_size=24576,
+    num_layers=28, num_heads=16, num_kv_heads=16, head_dim=256,
+    rms_norm_eps=1e-6, tie_embeddings=True, max_seq_length=8192,
+    arch="gemma"))
+register_model("gemma2-2b", ModelConfig(
+    vocab_size=256000, hidden_size=2304, intermediate_size=9216,
+    num_layers=26, num_heads=8, num_kv_heads=4, head_dim=256,
+    rms_norm_eps=1e-6, tie_embeddings=True, max_seq_length=8192,
+    arch="gemma2", sliding_window=4096, sliding_window_pattern=2,
+    attn_logit_softcap=50.0, final_logit_softcap=30.0,
+    query_pre_attn_scalar=256))  # HF google/gemma-2-2b config.json
+register_model("gemma2-9b", ModelConfig(
+    vocab_size=256000, hidden_size=3584, intermediate_size=14336,
+    num_layers=42, num_heads=16, num_kv_heads=8, head_dim=256,
+    rms_norm_eps=1e-6, tie_embeddings=True, max_seq_length=8192,
+    arch="gemma2", sliding_window=4096, sliding_window_pattern=2,
+    attn_logit_softcap=50.0, final_logit_softcap=30.0,
+    query_pre_attn_scalar=256))
+register_model("llama3-8b", ModelConfig(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0,
+    max_seq_length=8192))  # HF meta-llama/Meta-Llama-3-8B config.json
+register_model("llama3.1-8b", ModelConfig(
+    vocab_size=128256, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=500000.0,
+    max_seq_length=131072,
+    rope_scaling={"rope_type": "llama3", "factor": 8.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192}))
+register_model("llama3-70b", ModelConfig(
+    vocab_size=128256, hidden_size=8192, intermediate_size=28672,
+    num_layers=80, num_heads=64, num_kv_heads=8, rope_theta=500000.0,
+    max_seq_length=8192))
+register_model("llama3.2-1b", ModelConfig(
+    vocab_size=128256, hidden_size=2048, intermediate_size=8192,
+    num_layers=16, num_heads=32, num_kv_heads=8, rope_theta=500000.0,
+    tie_embeddings=True, max_seq_length=131072,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192}))
+register_model("llama3.2-3b", ModelConfig(
+    vocab_size=128256, hidden_size=3072, intermediate_size=8192,
+    num_layers=28, num_heads=24, num_kv_heads=8, rope_theta=500000.0,
+    tie_embeddings=True, max_seq_length=131072,
+    rope_scaling={"rope_type": "llama3", "factor": 32.0,
+                  "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                  "original_max_position_embeddings": 8192}))
+register_model("phi3-mini", ModelConfig(
+    vocab_size=32064, hidden_size=3072, intermediate_size=8192,
+    num_layers=32, num_heads=32, num_kv_heads=32, rope_theta=10000.0,
+    max_seq_length=4096, sliding_window=2047,
+    # llama block shape: HF Phi3 fuses qkv/gate_up in storage only
+    # (hf_import splits them); microsoft/Phi-3-mini-4k-instruct
+    ))
+register_model("qwen2-7b", ModelConfig(
+    vocab_size=152064, hidden_size=3584, intermediate_size=18944,
+    num_layers=28, num_heads=28, num_kv_heads=4, rope_theta=1e6,
+    rms_norm_eps=1e-6, max_seq_length=131072, attention_bias=True))
+# phi-2 (2.7B): true architecture — parallel residual block, partial
+# rotary (0.4), LayerNorm, biased projections, GELU MLP (HF
+# microsoft/phi-2 config.json values; weight import in models/hf_import)
+register_model("phi-2", ModelConfig(
+    vocab_size=51200, hidden_size=2560, intermediate_size=10240,
+    num_layers=32, num_heads=32, num_kv_heads=32, max_seq_length=2048,
+    arch="phi", rotary_pct=0.4, rms_norm_eps=1e-5))
+# mixtral 8x7B (MoE): 8 experts, top-2 routing — beyond-reference
+# capability exercising the `expert` mesh axis. HF mixtral checkpoints
+# import via models/hf_import (block_sparse_moe mapping,
+# logits-parity-tested against transformers).
+register_model("mixtral-8x7b", ModelConfig(
+    vocab_size=32000, hidden_size=4096, intermediate_size=14336,
+    num_layers=32, num_heads=32, num_kv_heads=8, rope_theta=1e6,
+    max_seq_length=32768, num_experts=8, num_experts_per_token=2))
+# tiny models for tests / smoke runs
+register_model("tiny", ModelConfig(
+    vocab_size=512, hidden_size=64, intermediate_size=192,
+    num_layers=2, num_heads=4, num_kv_heads=2, max_seq_length=256,
+    param_dtype="float32", dtype="float32", remat="none"))
+register_model("tiny-gqa", ModelConfig(
+    vocab_size=512, hidden_size=128, intermediate_size=384,
+    num_layers=4, num_heads=8, num_kv_heads=4, max_seq_length=512,
+    param_dtype="float32", dtype="float32", remat="none"))
+register_model("tiny-moe", ModelConfig(
+    vocab_size=512, hidden_size=64, intermediate_size=128,
+    num_layers=2, num_heads=4, num_kv_heads=2, max_seq_length=256,
+    num_experts=4, num_experts_per_token=2,
+    param_dtype="float32", dtype="float32", remat="none"))
+
+# HF repo-id aliases so reference configs keep working verbatim
+register_model("google/gemma-2b", _REGISTRY["gemma-2b"])
+register_model("google/gemma-7b", _REGISTRY["gemma-7b"])
+register_model("google/gemma-2-2b", _REGISTRY["gemma2-2b"])
+register_model("google/gemma-2-9b", _REGISTRY["gemma2-9b"])
+register_model("meta-llama/Meta-Llama-3-8B", _REGISTRY["llama3-8b"])
+register_model("meta-llama/Llama-3.1-8B", _REGISTRY["llama3.1-8b"])
+register_model("meta-llama/Meta-Llama-3-70B", _REGISTRY["llama3-70b"])
+register_model("meta-llama/Llama-3.2-1B", _REGISTRY["llama3.2-1b"])
+register_model("meta-llama/Llama-3.2-3B", _REGISTRY["llama3.2-3b"])
+register_model("microsoft/Phi-3-mini-4k-instruct", _REGISTRY["phi3-mini"])
+register_model("meta-llama/Llama-2-7b-hf", _REGISTRY["llama2-7b"])
+register_model("meta-llama/Llama-2-13b-hf", _REGISTRY["llama2-13b"])
+register_model("meta-llama/Llama-2-70b-hf", _REGISTRY["llama2-70b"])
+register_model("mistralai/Mistral-7B-v0.1", _REGISTRY["mistral-7b"])
+register_model("Qwen/Qwen2-7B", _REGISTRY["qwen2-7b"])
+# qwen2.5 shares the qwen2 architecture and the 7B's exact dims
+# (config.json differs only in sliding-window metadata, which HF
+# defaults to off — hf_import handles real config.json files directly)
+register_model("qwen2.5-7b", _REGISTRY["qwen2-7b"])
+register_model("Qwen/Qwen2.5-7B", _REGISTRY["qwen2-7b"])
+register_model("microsoft/phi-2", _REGISTRY["phi-2"])
+register_model("mistralai/Mixtral-8x7B-v0.1", _REGISTRY["mixtral-8x7b"])

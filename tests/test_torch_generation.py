@@ -1,0 +1,146 @@
+"""Generation parity: the port's build_generate_fn against dla_tpu's.
+
+Greedy decoding on the committed fp32 checkpoint must give EXACTLY the
+JAX package's tokens, masks and lengths (logps to 1e-4), under the
+fixed-length schedule, per-step early exit on EOS, and group_size > 1.
+Sampling draws from a torch.Generator (other bits than jax.random): the
+filtered distribution must match JAX's to 1e-6, and seeded draws must be
+reproducible and never land on a filtered-out token."""
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dla_tpu.checkpoint.checkpointer import load_tree_numpy as j_load
+from dla_tpu.generation.engine import GenerationConfig as JGen
+from dla_tpu.generation.engine import build_generate_fn as j_build
+from dla_tpu.models.config import ModelConfig as JModelConfig
+from dla_tpu.models.transformer import Transformer as JTransformer
+from dla_tpu.ops.sampling import filtered_probs as j_filtered_probs
+from dla_tpu_torch.data.tokenizers import ByteTokenizer
+from dla_tpu_torch.generation.engine import (
+    GenerationConfig,
+    GenerationEngine,
+    build_generate_fn,
+)
+from dla_tpu_torch.ops.sampling import filtered_probs, sample_token
+from dla_tpu_torch.training.model_io import load_causal_lm
+
+CKPT = Path(__file__).resolve().parents[1] / "checkpoints" / "run" / "final"
+
+
+@pytest.fixture(scope="module")
+def models():
+    jtree, aux = j_load(str(CKPT), prefix="params")
+    jm = JTransformer(JModelConfig.from_dict(aux["model_config"]))
+    bundle = load_causal_lm(str(CKPT), {}, device="cpu")
+    return jm, jtree, bundle
+
+
+def _prompts():
+    tok = ByteTokenizer()
+    texts = ["The quick brown fox", "hello", "Once upon a time, in"]
+    width = 16
+    ids = np.zeros((len(texts), width), np.int32)
+    mask = np.zeros_like(ids)
+    for i, t in enumerate(texts):
+        enc = tok.encode(t)[:width]
+        ids[i, :len(enc)], mask[i, :len(enc)] = enc, 1
+    return ids, mask
+
+
+def _run_both(models, group_size=1, **gen_kw):
+    jm, jp, bundle = models
+    ids, mask = _prompts()
+    jout = j_build(jm, JGen(do_sample=False, **gen_kw),
+                   group_size=group_size)(
+        jp, jnp.asarray(ids), jnp.asarray(mask), jax.random.key(0))
+    tout = build_generate_fn(bundle.model, GenerationConfig(
+        do_sample=False, **gen_kw), group_size=group_size)(
+        bundle.params, torch.from_numpy(ids), torch.from_numpy(mask),
+        torch.Generator().manual_seed(0))
+    return ({k: np.asarray(v) for k, v in jout.items()},
+            {k: v.numpy() for k, v in tout.items()})
+
+
+def _assert_same(jout, tout):
+    for key in ("sequences", "sequence_mask", "response_tokens",
+                "response_mask", "lengths"):
+        np.testing.assert_array_equal(tout[key], jout[key], err_msg=key)
+    np.testing.assert_allclose(tout["response_logps"],
+                               jout["response_logps"], atol=1e-4)
+
+
+def test_greedy_fixed_length_matches_jax(models):
+    jout, tout = _run_both(models, max_new_tokens=10, eos_token_id=-1)
+    assert tout["response_mask"].all()
+    _assert_same(jout, tout)
+
+
+def test_greedy_early_exit_on_eos_matches_jax(models):
+    """EOS = a token row 0 emits mid-response, so rows finish at
+    different steps; finished rows emit pad with a zero mask."""
+    _, fixed = _run_both(models, max_new_tokens=10, eos_token_id=-1)
+    eos = int(fixed["response_tokens"][0, 3])
+    jout, tout = _run_both(models, max_new_tokens=10, eos_token_id=eos)
+    assert not tout["response_mask"].all()
+    _assert_same(jout, tout)
+
+
+def test_group_size_two_matches_jax(models):
+    jout, tout = _run_both(models, group_size=2, max_new_tokens=6,
+                           eos_token_id=-1)
+    assert tout["response_tokens"].shape == (6, 6)
+    _assert_same(jout, tout)
+
+
+def test_generate_text_greedy(models):
+    _, _, bundle = models
+    engine = GenerationEngine(bundle.model, bundle.tokenizer,
+                              GenerationConfig(max_new_tokens=8,
+                                               do_sample=False))
+    texts, out = engine.generate_text(bundle.params, ["hello", "abc"], 16,
+                                      torch.Generator().manual_seed(0))
+    assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
+    assert out["response_tokens"].shape == (2, 8)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(temperature=0.7, top_p=0.9),
+    dict(temperature=1.0, top_p=1.0, top_k=5),
+    dict(temperature=0.5, top_p=0.5, top_k=20),
+    dict(do_sample=False),
+])
+def test_filtered_probs_match_jax(kw):
+    logits = np.random.RandomState(6).randn(4, 300).astype(np.float32) * 3
+    ref = np.asarray(j_filtered_probs(jnp.asarray(logits), **kw))
+    out = filtered_probs(torch.from_numpy(logits), **kw).numpy()
+    np.testing.assert_allclose(out, ref, atol=1e-6)
+
+
+def test_seeded_sampling_reproducible_and_filtered():
+    logits = torch.from_numpy(
+        np.random.RandomState(7).randn(64, 500).astype(np.float32) * 4)
+    kw = dict(temperature=0.7, top_p=0.9)
+    draws = []
+    for _ in range(2):
+        g = torch.Generator().manual_seed(123)
+        draws.append(torch.stack([sample_token(g, logits, **kw)
+                                  for _ in range(20)]))
+    assert torch.equal(draws[0], draws[1])
+    probs = filtered_probs(logits, **kw)
+    picked = probs.gather(1, draws[0].T.long())
+    assert (picked > 0).all()
+    # a different seed gives a different stream
+    other = sample_token(torch.Generator().manual_seed(124), logits, **kw)
+    assert not torch.equal(other, draws[0][0])
+
+
+def test_per_request_seeds_not_ported(models):
+    _, _, bundle = models
+    with pytest.raises(NotImplementedError, match="threefry"):
+        build_generate_fn(bundle.model, GenerationConfig(),
+                          per_request_seeds=True)

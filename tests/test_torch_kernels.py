@@ -1,0 +1,203 @@
+"""Kernel parity between the JAX package and the PyTorch port.
+
+Each port kernel wrapper, called on CPU tensors, computes its plain
+PyTorch version; here that version is held against the JAX package's
+Pallas kernel run in interpret mode on the same numpy inputs. (The CUDA
+kernels themselves are held against the same plain versions on the
+card by ``chip_smoke.py``.) Tolerances: fp32 1e-5 (summation order
+only), bf16 2e-2 (a bf16 ulp at |x| <= 2 plus rounding-point drift)."""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dla_tpu.ops.decode_kernel import flash_decode_attention as j_decode
+from dla_tpu.ops.flash_attention import flash_causal_attention as j_flash
+from dla_tpu.ops.quant_matmul import int8_matmul as j_int8_matmul
+from dla_tpu_torch.ops.decode_kernel import flash_decode_attention
+from dla_tpu_torch.ops.flash_attention import (
+    flash_attention_forward,
+    flash_causal_attention,
+)
+from dla_tpu_torch.ops.quant_matmul import int8_matmul
+
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _pair(x: np.ndarray, dtype: str):
+    """(jax array, torch tensor) of the same values in ``dtype``."""
+    j = jnp.asarray(x, dtype)
+    t = torch.from_numpy(np.array(j.astype(jnp.float32))).to(
+        getattr(torch, dtype))
+    return j, t
+
+
+def _np(x) -> np.ndarray:
+    if torch.is_tensor(x):
+        return x.float().numpy()
+    return np.asarray(x.astype(jnp.float32))
+
+
+# ------------------------------------------------------------- flash fwd
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(b=2, t=32, h=4, kh=2, bq=8, bk=16),               # GQA
+    dict(b=1, t=48, h=2, kh=2, bq=16, bk=8, window=10),    # sliding window
+    dict(b=2, t=32, h=4, kh=1, bq=16, bk=16, segments=True),  # packing
+])
+def test_flash_plain_matches_pallas(case, dtype):
+    rs = np.random.RandomState(1)
+    b, t, h, kh, d = case["b"], case["t"], case["h"], case["kh"], 16
+    q, qt = _pair(rs.randn(b, t, h, d), dtype)
+    k, kt = _pair(rs.randn(b, t, kh, d), dtype)
+    v, vt = _pair(rs.randn(b, t, kh, d), dtype)
+    seg = None
+    if case.get("segments"):
+        seg = np.zeros((b, t), np.int32)
+        seg[0, :12], seg[0, 12:27] = 1, 2           # two segments + pads
+        seg[1, :30] = 1
+    ref = j_flash(q, k, v, segment_ids=None if seg is None
+                  else jnp.asarray(seg),
+                  block_q=case["bq"], block_k=case["bk"], interpret=True,
+                  window=case.get("window"))
+    out = flash_causal_attention(
+        qt, kt, vt, window=case.get("window"),
+        segment_ids=None if seg is None else torch.from_numpy(seg))
+    assert out.dtype == qt.dtype and out.shape == (b, t, h, d)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=TOL[dtype],
+                               rtol=TOL[dtype])
+
+
+def test_flash_plain_lse_and_masked_rows():
+    """lse is log-sum-exp of each scaled, masked score row; a query whose
+    segment matches no key (segment ids differ on the q and kv side) is
+    fully masked -> zero output, lse -1e30, no NaN."""
+    rs = np.random.RandomState(2)
+    b, t, h, d = 1, 8, 2, 16
+    q = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32))
+    k = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32))
+    v = torch.from_numpy(rs.randn(b, t, h, d).astype(np.float32))
+    qseg = torch.ones((b, t), dtype=torch.int32)
+    kseg = torch.ones((b, t), dtype=torch.int32)
+    qseg[0, 5] = 7                                  # row 5 matches nothing
+    with torch.no_grad():
+        out, lse = flash_attention_forward(q, k, v, segment_ids=qseg,
+                                           kv_segment_ids=kseg)
+    s = torch.einsum("bthd,bshd->bhts", q, k) * d ** -0.5
+    causal = torch.ones(t, t).tril().bool()
+    want = torch.logsumexp(s.masked_fill(~causal, float("-inf")), -1)
+    keep = torch.arange(t) != 5
+    np.testing.assert_allclose(lse[0][:, keep].numpy(),
+                               want[0][:, keep].numpy(), atol=1e-5)
+    assert torch.all(lse[0, :, 5] == -1e30)
+    assert torch.all(out[0, 5] == 0) and torch.isfinite(out).all()
+
+
+def test_flash_refuses_autograd():
+    x = torch.zeros((1, 4, 1, 16), requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        flash_causal_attention(x, x, x)
+
+
+# ------------------------------------------------------- decode attention
+
+def _sym_int8(x: np.ndarray):
+    sc = np.abs(x).max(-1) / 127.0 + 1e-12
+    q = np.clip(np.round(x / sc[..., None]), -127, 127).astype(np.int8)
+    return q, sc.astype(np.float32)
+
+
+@pytest.mark.parametrize("case", [
+    dict(cache="bfloat16"),
+    dict(cache="int8"),
+    dict(cache="int8", fill=150, poison=True),   # NaN past the fill level
+    dict(cache="bfloat16", fill=70, poison=True),
+    dict(cache="int8", softcap=30.0),
+    dict(cache="bfloat16", masked_row=True),     # row 0 attends only itself
+])
+def test_decode_plain_matches_pallas(case):
+    rs = np.random.RandomState(3)
+    b, s, h, kh, d = 2, 200, 8, 4, 128
+    q, qt = _pair(rs.randn(b, 1, h, d), "bfloat16")
+    kn, knt = _pair(rs.randn(b, 1, kh, d), "bfloat16")
+    vn, vnt = _pair(rs.randn(b, 1, kh, d), "bfloat16")
+    fill = case.get("fill")
+    valid = rs.rand(b, s) < 0.8
+    if fill is not None:
+        valid &= np.arange(s)[None, :] < fill
+    if case.get("masked_row"):
+        valid[0] = False
+    qpos = np.full((b, 1), s, np.int32)
+    kpos = np.broadcast_to(np.arange(s, dtype=np.int32)[None], (b, s))
+    kc_f, vc_f = rs.randn(b, s, kh, d), rs.randn(b, s, kh, d)
+    kw_j, kw_t = {}, {}
+    if case["cache"] == "int8":
+        kq, ksc = _sym_int8(kc_f)
+        vq, vsc = _sym_int8(vc_f)
+        ksc, vsc = ksc.transpose(0, 2, 1).copy(), vsc.transpose(0, 2, 1).copy()
+        if case.get("poison"):     # scales past the fill may hold garbage
+            ksc[:, :, fill:] = np.nan
+            vsc[:, :, fill:] = np.nan
+        kc, kct = jnp.asarray(kq), torch.from_numpy(kq)
+        vc, vct = jnp.asarray(vq), torch.from_numpy(vq)
+        kw_j = dict(k_scale=jnp.asarray(ksc), v_scale=jnp.asarray(vsc))
+        kw_t = dict(k_scale=torch.from_numpy(ksc),
+                    v_scale=torch.from_numpy(vsc))
+    else:
+        if case.get("poison"):
+            kc_f[:, fill:] = np.nan
+            vc_f[:, fill:] = np.nan
+        kc, kct = _pair(kc_f, "bfloat16")
+        vc, vct = _pair(vc_f, "bfloat16")
+    cap = case.get("softcap", 0.0)
+    ref = j_decode(q, kc, vc, kn, vn, kv_valid=jnp.asarray(valid),
+                   q_positions=jnp.asarray(qpos),
+                   kv_positions=jnp.asarray(kpos), logit_softcap=cap,
+                   kv_fill=None if fill is None else jnp.asarray(fill),
+                   block_s=128, interpret=True, **kw_j)
+    out = flash_decode_attention(
+        qt, kct, vct, knt, vnt, kv_valid=torch.from_numpy(valid),
+        q_positions=torch.from_numpy(qpos),
+        kv_positions=torch.from_numpy(kpos.copy()), logit_softcap=cap,
+        kv_fill=fill, **kw_t)
+    assert out.dtype == torch.bfloat16 and out.shape == (b, 1, h, d)
+    assert torch.isfinite(out.float()).all()
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-2, rtol=2e-2)
+    if case.get("masked_row"):     # only the new token: out == v_new
+        want = np.repeat(_np(vnt)[0, 0], h // kh, axis=0)
+        np.testing.assert_allclose(_np(out)[0, 0], want, atol=1e-2)
+
+
+# --------------------------------------------------------- int8 matmul
+
+@pytest.mark.parametrize("m,k,n", [(3, 64, 208), (130, 128, 384),
+                                   (5, 96, 48), (64, 256, 1040)])
+def test_int8_matmul_plain_matches_pallas(m, k, n):
+    """Ragged M and N (not multiples of the 64-wide CUDA tile or the
+    TPU's 128 lanes); the two agree exactly — same bf16 operands, fp32
+    sums, one rounding — so the bound is a single bf16 ulp."""
+    rs = np.random.RandomState(4)
+    w = rs.randn(k, n).astype(np.float32) * 0.02
+    sc = (np.abs(w).max(0) / 127 + 1e-12).astype(np.float32)
+    q = np.clip(np.round(w / sc), -127, 127).astype(np.int8)
+    x = rs.randn(m, k).astype(np.float32)
+    ref = j_int8_matmul(jnp.asarray(x), jnp.asarray(q),
+                        jnp.asarray(sc[None]), interpret=True)
+    out = int8_matmul(torch.from_numpy(x), torch.from_numpy(q),
+                      torch.from_numpy(sc))
+    assert out.dtype == torch.bfloat16 and out.shape == (m, n)
+    np.testing.assert_allclose(_np(out), _np(ref), atol=2e-2, rtol=2e-2)
+
+
+def test_int8_matmul_leading_dims_and_scale_shapes():
+    rs = np.random.RandomState(5)
+    q = torch.from_numpy(rs.randint(-127, 128, (32, 48)).astype(np.int8))
+    sc = torch.from_numpy(rs.rand(48).astype(np.float32) * 1e-2)
+    x = torch.from_numpy(rs.randn(2, 3, 32).astype(np.float32))
+    out = int8_matmul(x, q, sc)
+    assert out.shape == (2, 3, 48)
+    flat = int8_matmul(x.reshape(6, 32), q, sc[None, :]).reshape(2, 3, 48)
+    assert torch.equal(out, flat)
+    with pytest.raises(ValueError):
+        int8_matmul(x, q.float(), sc)

@@ -7,15 +7,21 @@ Phases (any failure fails the run; the phases all run so one call shows
 every fault, and the result lines are printed only when all passed):
 
 1. build   — compile the CUDA kernels from ``dla_tpu_torch/csrc`` (nvcc,
-             sm_90a) and print the build time and ptxas resource usage;
+             sm_90a, one process per source) and print the build time and
+             ptxas resource usage;
 2. parity  — hold each kernel against its plain PyTorch version on the
-             card at the rollout path's shapes (llama3-8b widths, B=64):
-             flash forward at T=128, decode attention over an int8 cache
-             of S=384 with the fill mid-chunk and NaN past it, the int8
-             matmul at M=64 and M=8192 for every projection and lm_head;
+             card at the paths' shapes: flash forward at T=128 (rollout),
+             decode attention over an int8 cache of S=384 with the fill
+             mid-chunk and NaN past it, the int8 matmul at M=64 and M=8192
+             for every projection and lm_head; the flash backward (dQ,
+             dK/dV) at the SFT shape with packed segments, with a window,
+             at ragged T=77 and at head_dim 128, and the autograd
+             Function's gradients against autograd through the plain
+             forward;
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
-             could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s);
+             could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
+             flash forward, dQ and dK/dV also at the SFT shape;
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -23,7 +29,19 @@ every fault, and the result lines are printed only when all passed):
              top_p 0.9, no EOS). Launch counts must equal the path's
              expected counts, outputs must be well formed, and the logits
              of the prefill and 4 decode steps must match the same model
-             running the plain versions (4 layers).
+             running the plain versions (4 layers);
+5. train   — ``dla_tpu_torch.training.train_sft.main`` on
+             config/sft_config.yaml with llama3.2-1b at full width and
+             depth (random init, byte tokenizer, flash + full remat, fp32
+             params, bf16 activations, packing into 2048-token rows,
+             micro-batch 4), cut to grad accumulation 4 and 4 steps, eval
+             every 2 steps, final save into build/ (timed, then deleted).
+             Launch counts must equal the path's, losses and grad norms
+             be finite and the first loss near ln V. Then, at 2 layers:
+             every leaf's gradient on the kernel path against the plain
+             path (judged against the bf16 noise floor), an interrupted
+             and resumed run's step 3-4 losses against the uninterrupted
+             run's, and a loss that falls on one repeated batch.
 
 Last lines: the card's name and power limit (nvidia-smi), a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -46,6 +64,16 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
 SEED = 0
+
+# the SFT path's shapes (llama3.2-1b, config/sft_config.yaml, micro 4)
+SFT_CONFIG = ROOT / "config" / "sft_config.yaml"
+SFT_MODEL = "llama3.2-1b"
+SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD, SFT_LAYERS = 4, 2048, 32, 8, 64, 16
+SFT_ACCUM, SFT_STEPS, SFT_EVAL_EVERY = 4, 4, 2
+# Trainer.fit's eval takes 8 micro-batches from an iterator that never
+# ends (it wraps epochs, as the JAX package's does): 32 records = 8
+# distinct batches of 4
+SFT_EVAL_BATCHES, SFT_EVAL_RECORDS = 8, 32
 
 # the rollout path's shapes (llama3-8b, config/rlhf_config.yaml)
 B, PROMPT, NEW = 64, 128, 256
@@ -127,6 +155,9 @@ def main() -> int:
     with run.phase("slice"):
         slice_run(run, torch, dev, _native)
 
+    with run.phase("train"):
+        train_run(run, torch, dev, _native)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -139,7 +170,8 @@ def main() -> int:
     if run.failures:
         print(f"chip_smoke: FAILED phases: {run.failures}", flush=True)
         return 1
-    missing = [k for k in ("flash_attention_fwd", "decode_attention",
+    missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                           "flash_attention_bwd_dkv", "decode_attention",
                            "int8_matmul") if k not in run.kernels]
     if missing:
         print(f"chip_smoke: no numbers for {missing}", flush=True)
@@ -297,7 +329,83 @@ def parity(run, torch, dev):
             worst = max(worst, e)
         del x, w, sc, out, ref
     errs["int8_matmul"] = worst
+    parity_backward(run, torch, dev, g, errs)
     run.report["parity_max_err"] = errs
+
+
+def _segments(torch, dev, b, t, seed):
+    """Packed-row segment ids: runs of 16..t/3 tokens numbered from 1,
+    the last tenth of each row padding (0)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    seg = np.zeros((b, t), np.int32)
+    for row in range(b):
+        pos, sid = 0, 1
+        while pos < t - t // 10:
+            n = int(rs.randint(16, max(17, t // 3)))
+            seg[row, pos:pos + n] = sid
+            pos, sid = pos + n, sid + 1
+    return torch.from_numpy(seg).to(dev)
+
+
+def parity_backward(run, torch, dev, g, errs):
+    """dQ, dK, dV of the two backward kernels against
+    ``flash_backward_plain`` on the same inputs: one bf16 rounding of
+    fp32 sums taken in another order, plus the rare flip of a bf16 dS
+    entry at a rounding point, so max|err| <= 1e-2 * max|ref| (~2 bf16
+    ulps at the largest gradient)."""
+    from dla_tpu_torch.ops import flash_attention as fa
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    cases = [
+        ("SFT shape B4 T2048 H32 KH8 D64, packed segments",
+         (SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD), "seg"),
+        ("window 37, T300", (2, 300, 8, 2, 64), "win"),
+        ("ragged T77 D64", (3, 77, 4, 2, 64), None),
+        ("llama3-8b heads D128, T256", (2, 256, HEADS, KV_HEADS, HD), None)]
+    for label, (b, t, h, kh, d), extra in cases:
+        q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
+            mk(b, t, h, d)
+        kw = {}
+        if extra == "seg":
+            kw["segment_ids"] = _segments(torch, dev, b, t, SEED)
+        if extra == "win":
+            kw["window"] = 37
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        got = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        ref = fa.flash_backward_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        es = []
+        for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+            e = (a.float() - r.float()).abs().max().item()
+            tol = 1e-2 * r.float().abs().max().item()
+            run.check(e <= tol and torch.isfinite(a.float()).all().item(),
+                      f"flash bwd {label} {name}: max|err| {e:.3g} <= "
+                      f"{tol:.3g}")
+            es.append(e)
+        if extra == "seg":
+            errs["flash_attention_bwd_dq"] = es[0]
+            errs["flash_attention_bwd_dkv"] = max(es[1:])
+        del q, k, v, do, out, lse, got, ref
+        torch.cuda.empty_cache()
+
+    # the autograd Function (kernels both ways) against autograd through
+    # the plain forward, which keeps dS in fp32 where the kernels round it
+    # to bf16 as the Pallas kernels do: <= 2e-2 * max|ref|
+    b, t, h, kh, d = 2, 200, 8, 2, 64
+    base = [mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d)]
+    do = mk(b, t, h, d)
+    seg = _segments(torch, dev, b, t, SEED + 1)
+    leaves = [x.clone().requires_grad_() for x in base]
+    got = torch.autograd.grad(fa.flash_causal_attention(
+        *leaves, segment_ids=seg), leaves, do)
+    leaves = [x.clone().requires_grad_() for x in base]
+    ref = torch.autograd.grad(fa.flash_forward_plain(
+        *leaves, segment_ids=seg)[0], leaves, do)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        e = (a.float() - r.float()).abs().max().item()
+        tol = 2e-2 * r.float().abs().max().item()
+        run.check(e <= tol, f"flash autograd Function {name} vs autograd "
+                  f"of the plain forward: max|err| {e:.3g} <= {tol:.3g}")
 
 
 # ------------------------------------------------------------------ timing
@@ -467,6 +575,104 @@ def timing(run, torch, dev):
               f"({kv['bound_by']}), library {kv['library_ms']:.4f}, plain "
               f"{kv['plain_ms']:.4f} [{kv['unit']}]", flush=True)
     print(f"   int8_matmul per prefill: {run.report['int8_matmul_prefill']}")
+    timing_sft(run, torch, dev, g)
+
+
+def timing_sft(run, torch, dev, g):
+    """Flash forward, dQ and dK/dV at the SFT shape (B=4, T=2048, H=32,
+    KH=8, D=64; causal, no segments, so the causal count below is the
+    work the inputs need and SDPA computes the same function). One
+    causal T x T x D product is 2 * B * H * D * T(T+1)/2 FLOPs: the
+    forward does 2, dQ 3 (S, dP, dS K) and dK/dV 4 (S, dP, P^T dO,
+    dS^T Q)."""
+    import torch.nn.functional as F
+    from dla_tpu_torch.ops import flash_attention as fa
+    b, t, h, kh, d = SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    sets = []
+    for _ in range(2):          # ~110 MB each: a pass streams past the L2
+        q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
+            mk(b, t, h, d)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        sets.append(dict(q=q, k=k, v=v, do=do, out=out, lse=lse,
+                         delta=fa.delta_rowsum(out, do)))
+    mm = 2 * b * h * d * t * (t + 1) // 2          # one causal product
+    qb, kvb, rowb = b * t * h * d * 2, b * t * kh * d * 2, b * h * t * 4
+    rows = {}
+
+    def bwd_args(s):
+        return (s["q"], s["k"], s["v"], s["do"], s["lse"], s["delta"],
+                None, None, None, None)
+    t_fwd = _time_ms(torch, [lambda s=s: fa.flash_attention_forward(
+        s["q"], s["k"], s["v"]) for s in sets * 4])
+    t_dq = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(*bwd_args(s))
+                            for s in sets * 4])
+    t_dkv = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(*bwd_args(s))
+                             for s in sets * 4])
+    t_bwd = _time_ms(torch, [lambda s=s: fa.flash_attention_backward(
+        s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
+        for s in sets * 4])
+    t_pf = _time_ms(torch, [lambda s=s: fa.flash_forward_plain(
+        s["q"], s["k"], s["v"]) for s in sets], reps=3)
+    t_pb = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
+        s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
+        for s in sets], reps=3)
+    # yardstick: SDPA in [B, H, T, D], forward and autograd backward
+    lib = []
+    for s in sets:
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (s["q"], s["k"], s["v"]))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        lib.append((qs, ks, vs, o, s["do"].transpose(1, 2).contiguous()))
+    with torch.no_grad():
+        t_lf = _time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
+            s[0], s[1], s[2], is_causal=True, enable_gqa=True)
+            for s in lib * 4])
+    t_lb = _time_ms(torch, [lambda s=s: torch.autograd.grad(
+        s[3], s[:3], s[4], retain_graph=True) for s in lib * 4])
+    rows["fwd"] = dict(
+        ms=t_fwd, plain_ms=t_pf, library_ms=t_lf,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(2 * qb + 2 * kvb + rowb, 2 * mm))),
+        unit="one launch: one layer of an SFT micro-step, B4 T2048 H32 "
+             "KH8 D64, causal")
+    rows["dq"] = dict(
+        ms=t_dq, plain_ms=t_pb, library_ms=t_lb,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(3 * qb + 2 * kvb + 2 * rowb, 3 * mm))),
+        unit="one launch at the SFT shape (plain and library compute dQ, "
+             "dK and dV together)")
+    rows["dkv"] = dict(
+        ms=t_dkv, plain_ms=t_pb, library_ms=t_lb,
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(2 * qb + 4 * kvb + 2 * rowb, 4 * mm))),
+        unit="one launch at the SFT shape (plain and library compute dQ, "
+             "dK and dV together)")
+    rows["backward_total_ms"] = t_bwd     # delta + dQ + dK/dV
+    run.report["timing_sft"] = rows
+    err = run.report.get("parity_max_err", {})
+    fwd = run.kernels["flash_attention_fwd"]
+    fwd["sft_shape"] = rows["fwd"]
+    for key, name, line in (("dq", "flash_attention_bwd_dq", 398),
+                            ("dkv", "flash_attention_bwd_dkv", 438)):
+        r = rows[key]
+        run.kernels[name] = dict(
+            name=name, route="cuda", source="dla_tpu_torch/csrc/flash_bwd.cu",
+            replaces=f"dla_tpu/ops/flash_attention.py:{line}", launches=None,
+            max_abs_err=err.get(name), ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], unit=r["unit"])
+    for key, r in rows.items():
+        if isinstance(r, dict):
+            print(f"   SFT flash {key}: {r['ms']:.4f} ms vs bound "
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}), library "
+                  f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}",
+                  flush=True)
+    print(f"   SFT flash backward (delta + dQ + dK/dV): {t_bwd:.4f} ms vs "
+          f"SDPA backward {t_lb:.4f} ms", flush=True)
+    del sets, lib
+    torch.cuda.empty_cache()
 
 
 # ------------------------------------------------------------------- slice
@@ -630,7 +836,26 @@ def slice_run(run, torch, dev, native):
 
 
 OUR_KERNELS = ("int8_mm_kernel", "int8_mm_finalize", "flash_fwd_kernel",
+               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                "decode_chunk_kernel", "decode_merge_kernel")
+
+
+def _device_ms(prof, n: int, ops: bool = False):
+    """(device ms per iteration by kernel name, total) from a profile of
+    ``n`` iterations. With ``ops``, the names are instead the ATen ops
+    whose own launches took that device time (kernels attributed to the
+    op that launched them)."""
+    from torch.autograd import DeviceType
+    per_name = {}
+    for ev in prof.key_averages():
+        if ops != (ev.device_type == DeviceType.CPU) or (
+                ops and not ev.key.startswith("aten::")):
+            continue
+        t = getattr(ev, "self_device_time_total",
+                    getattr(ev, "self_cuda_time_total", 0.0))
+        if t > 0:
+            per_name[ev.key] = per_name.get(ev.key, 0.0) + t / 1e3 / n
+    return per_name, sum(per_name.values())
 
 
 def profile_decode(run, torch, model, params, ids, mask, gen, step_ms):
@@ -652,16 +877,7 @@ def profile_decode(run, torch, model, params, ids, mask, gen, step_ms):
         for _ in range(n):
             _, _, logits, cache, done = step(g, params, logits, cache, done)
         torch.cuda.synchronize()
-    from torch.autograd import DeviceType
-    per_name = {}
-    for ev in prof.key_averages():
-        if ev.device_type != DeviceType.CUDA:   # op rows repeat kernel time
-            continue
-        t = getattr(ev, "self_device_time_total",
-                    getattr(ev, "self_cuda_time_total", 0.0))
-        if t > 0:
-            per_name[ev.key] = per_name.get(ev.key, 0.0) + t / 1e3 / n
-    dev_ms = sum(per_name.values())
+    per_name, dev_ms = _device_ms(prof, n)
     ours = sum(v for k, v in per_name.items()
                if any(o in k for o in OUR_KERNELS))
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
@@ -672,6 +888,318 @@ def profile_decode(run, torch, model, params, ids, mask, gen, step_ms):
                top=[(k[:60], v) for k, v in top])
     run.report["decode_profile"] = rep
     print("   decode profile " + json.dumps(rep), flush=True)
+
+
+# ------------------------------------------------------------------- train
+
+_LETTERS = list("abcdefghijklmnopqrstuvwxyz     ")
+
+
+def _sft_records(n: int, seed: int):
+    """Instruction records of 64..1536 bytes (= byte-tokenizer tokens),
+    prompt an eighth to a half of each, so 2048-token rows pack several
+    segments."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(n):
+        total = int(rs.randint(64, 1536))
+        cut = int(rs.randint(total // 8, total // 2))
+        out.append({"prompt": "".join(rs.choice(_LETTERS, cut)),
+                    "response": "".join(rs.choice(_LETTERS, total - cut))})
+    return out
+
+
+def _sft_argv(work: Path):
+    sets = {
+        "seed": SEED,
+        "model.model_name_or_path": SFT_MODEL,
+        "model.tokenizer": "byte",
+        "data.train_path": str(work / "train.jsonl"),
+        "data.eval_path": str(work / "eval.jsonl"),
+        "data.packing": "true",
+        "model.max_seq_length": SFT_T,
+        "optimization.micro_batch_size": SFT_B,
+        "hardware.gradient_accumulation_steps": SFT_ACCUM,   # config: 32
+        "optimization.max_train_steps": SFT_STEPS,           # config: 5000
+        "logging.eval_every_steps": SFT_EVAL_EVERY,
+        "logging.log_every_steps": 1,
+        "logging.output_dir": str(work / "ckpt"),
+        "logging.log_dir": str(work / "logs"),
+    }
+    argv = ["--config", str(SFT_CONFIG)]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    return argv
+
+
+def _sft_batches(work: Path, n: int):
+    """The first ``n`` global batches the CLI's iterator yields."""
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.training.config import (config_from_args,
+                                               make_arg_parser)
+    from dla_tpu_torch.training.train_sft import build_train_iterator
+    config = config_from_args(make_arg_parser("").parse_args(
+        _sft_argv(work)))
+    it = iter(build_train_iterator(config, ByteTokenizer(), SFT_T,
+                                   SFT_B * SFT_ACCUM))
+    return [next(it) for _ in range(n)]
+
+
+def _small_trainer(torch, dev, layers: int, opt: dict, out_dir, seed=SEED):
+    """A Trainer on llama3.2-1b cut to ``layers`` (full width), SFT loss,
+    random init from ``seed``."""
+    import dataclasses
+    from dla_tpu_torch.models.config import get_model_config
+    from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.training.train_sft import make_sft_loss
+    from dla_tpu_torch.training.trainer import Trainer
+    cfg = dataclasses.replace(get_model_config(
+        SFT_MODEL, max_seq_length=SFT_T, attention="flash",
+        remat="full"), num_layers=layers)
+    model = Transformer(cfg)
+    params = model.init(_gen(torch, dev, seed))
+    config = {"optimization": opt,
+              "logging": {"output_dir": str(out_dir), "log_dir": None}}
+    return Trainer(config=config, loss_fn=make_sft_loss(model),
+                   params=params), model
+
+
+def _sft_opt(**over):
+    """config/sft_config.yaml's optimization block at this run's cuts."""
+    from dla_tpu_torch.training.config import load_config
+    opt = dict(load_config(SFT_CONFIG)["optimization"])
+    opt.pop("total_batch_size")
+    opt.update(micro_batch_size=SFT_B, gradient_accumulation_steps=SFT_ACCUM,
+               max_train_steps=SFT_STEPS)
+    opt.update(over)
+    return opt
+
+
+def train_run(run, torch, dev, native):
+    import shutil
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from dla_tpu_torch.data.jsonl import write_jsonl
+    from dla_tpu_torch.training import train_sft
+
+    work = ROOT / "build" / "chip_smoke_sft"
+    shutil.rmtree(work, ignore_errors=True)
+    work.mkdir(parents=True)
+    write_jsonl(work / "train.jsonl", _sft_records(320, SEED))
+    write_jsonl(work / "eval.jsonl", _sft_records(SFT_EVAL_RECORDS, SEED + 1))
+
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = train_sft.main(_sft_argv(work), device="cuda")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = native.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_eval = SFT_STEPS // SFT_EVAL_EVERY * SFT_EVAL_BATCHES
+    micro = SFT_ACCUM * SFT_STEPS
+    want = {"flash_attention_fwd": SFT_LAYERS * (2 * micro + n_eval),
+            "flash_attention_bwd_dq": SFT_LAYERS * micro,
+            "flash_attention_bwd_dkv": SFT_LAYERS * micro}
+    print(f"   launches {counts}, expected {want} (full remat: 2 forwards "
+          f"per layer per micro-step, + {n_eval} eval batches)")
+    run.check(counts == want, "train launch counts equal the path's counts")
+    run.kernels["flash_attention_fwd"]["launches_train"] = counts.get(
+        "flash_attention_fwd", 0)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        run.kernels[name]["launches"] = counts.get(name, 0)
+
+    rows = [json.loads(line) for line in
+            (work / "logs" / "metrics.jsonl").read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss_instant" in r]
+    losses = [r["train/loss_instant"] for r in train_rows]
+    gnorms = [r["train/grad_norm"] for r in train_rows]
+    evals = [r["eval/loss"] for r in rows if "eval/loss" in r]
+    print(f"   losses {losses}, grad norms {gnorms}, eval {evals}")
+    run.check(len(losses) == SFT_STEPS and all(
+        x is not None and np.isfinite(x) for x in losses + gnorms + evals),
+        "losses, grad norms and eval losses finite")
+    run.check(11.0 <= losses[0] <= 13.5,
+              f"first loss {losses[0]:.4f} near ln V = "
+              f"{np.log(VOCAB):.4f} (in [11, 13.5])")
+    n_params = sum(t.numel() for t in trainer.leaves)
+    ckpt = work / "ckpt" / "final"
+    index = json.loads((ckpt / "index.json").read_text())
+    ckpt_gb = sum(f.stat().st_size for f in ckpt.iterdir()) / 1e9
+    run.check(index["leaves"]["params.layers.wq"]["shape"]
+              == [SFT_LAYERS, 2048, 2048] and index["aux"]["step"]
+              == SFT_STEPS, "final/ holds stacked params at step 4")
+    save_s = trainer.last_save_s
+    shutil.rmtree(work / "ckpt")
+
+    # steady state: one optimizer step and one micro-step, synchronized
+    batch = _sft_batches(work, 1)[0]
+    tokens = int(batch["attention_mask"].sum())
+    trainer.step_on_batch(batch)                 # warm (allocator, cuBLAS)
+    torch.cuda.synchronize()
+    native.reset_launch_counts()
+    t0 = time.perf_counter()
+    trainer.step_on_batch(batch)
+    torch.cuda.synchronize()
+    step_s = time.perf_counter() - t0
+    per_step = native.launch_counts()    # one optimizer step, no eval
+    layer_steps = SFT_LAYERS * SFT_ACCUM   # layer passes per step
+    print(f"   launches per optimizer step {per_step}")
+    run.check(per_step == {"flash_attention_fwd": 2 * layer_steps,
+                           "flash_attention_bwd_dq": layer_steps,
+                           "flash_attention_bwd_dkv": layer_steps},
+              "one optimizer step launches 2 forwards and 1 of each "
+              "backward per layer per micro-step")
+    run.kernels["flash_attention_fwd"]["sft_shape"]["launches_per_step"] = \
+        per_step.get("flash_attention_fwd", 0)
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        run.kernels[name]["launches_per_step"] = per_step.get(name, 0)
+    mb = {k: torch.from_numpy(v[:SFT_B]).to(dev) for k, v in batch.items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss, _ = trainer.loss_fn(trainer.train_params, mb)
+    loss.backward()
+    torch.cuda.synchronize()
+    micro_s = time.perf_counter() - t0
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_on_batch(batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    per_name, dev_ms = _device_ms(prof, 1)
+    ours = {next(o for o in OUR_KERNELS if o in k): v
+            for k, v in per_name.items() if any(o in k for o in OUR_KERNELS)}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
+    by_op = sorted(_device_ms(prof, 1, ops=True)[0].items(),
+                   key=lambda kv: -kv[1])[:15]
+    kinds = {}     # device ms per optimizer step by kind of kernel
+    for k, v in per_name.items():
+        kind = ("port attention kernels" if any(o in k for o in OUR_KERNELS)
+                else "matmul (cuBLAS)" if any(m in k for m in (
+                    "nvjet", "gemm", "xmma", "cutlass", "sm90_"))
+                else "elementwise / reduce / copy (PyTorch)")
+        kinds[kind] = kinds.get(kind, 0.0) + v
+    tok_s = tokens / step_s
+    rep = dict(
+        cli_s=t_cli, losses=losses, grad_norms=gnorms, eval_losses=evals,
+        launches=counts, launches_per_step=per_step, n_params=n_params,
+        tokens_per_step=tokens,
+        optimizer_step_ms=step_s * 1e3, micro_step_ms=micro_s * 1e3,
+        tokens_per_s=tok_s,
+        mfu_6n=6 * n_params * tok_s / BF16_FLOP_PER_S,
+        peak_mem_gib=peak, checkpoint_save_s=save_s, checkpoint_gb=ckpt_gb,
+        profiled_step_ms=prof_s * 1e3,
+        device_ms_per_step=dev_ms if dev_ms > 0 else "not measured",
+        busy_share=dev_ms / (prof_s * 1e3) if dev_ms > 0 else
+        "not measured",
+        port_kernels_ms_per_step=sum(ours.values()),
+        port_kernels=ours, device_ms_by_kind=kinds,
+        top=[(k[:60], v) for k, v in top], device_ms_by_op=by_op)
+    run.report["train"] = rep
+    print("   train " + json.dumps(rep), flush=True)
+    del trainer, mb, loss, prof
+    torch.cuda.empty_cache()
+
+    train_checks_2_layers(run, torch, dev, work)
+    shutil.rmtree(work, ignore_errors=True)
+
+
+def _grads(torch, model, params, mb):
+    """{leaf name: fp32 gradient} of the SFT loss on one micro-batch, the
+    autograd leaves being per-layer views (the Trainer's)."""
+    from dla_tpu_torch.ops.fused_ce import model_fused_ce
+    from dla_tpu_torch.training.trainer import _train_views
+    views = _train_views(params)
+    named = {"embed": views["embed"]["embedding"],
+             "final_norm": views["final_norm"]}
+    for i, layer in enumerate(views["layers"]):
+        named.update({f"layers.{i}.{k}": t for k, t in layer.items()})
+    for t in named.values():
+        t.requires_grad_(True)
+        t.grad = None
+    loss, _ = model_fused_ce(model, views, mb)
+    loss.backward()
+    out = {k: t.grad.float().clone() for k, t in named.items()}
+    loss = loss.detach()
+    for t in named.values():
+        t.grad = None
+    return float(loss), out
+
+
+def train_checks_2_layers(run, torch, dev, work):
+    import dataclasses
+    from dla_tpu_torch.models.transformer import Transformer
+
+    batches = _sft_batches(work, SFT_STEPS)
+
+    # gradients, kernels vs plain versions vs plain with fp32 activations
+    trainer, model = _small_trainer(torch, dev, 2, _sft_opt(), work / "g")
+    params = trainer.params
+    mb = {k: torch.from_numpy(v[:SFT_B]).to(dev)
+          for k, v in batches[0].items()}
+    lk, gk = _grads(torch, model, params, mb)
+    with plain_versions():
+        lp, gp = _grads(torch, model, params, mb)
+        l32, g32 = _grads(torch, Transformer(dataclasses.replace(
+            model.cfg, dtype="float32")), params, mb)
+    worst = {}
+    for name in gk:
+        ref = gp[name].norm().item()
+        e = (gk[name] - gp[name]).norm().item() / max(ref, 1e-30)
+        floor = (gp[name] - g32[name]).norm().item() / max(
+            g32[name].norm().item(), 1e-30)
+        worst[name] = (e, floor)
+    bad = {k: v for k, v in worst.items() if not v[0] <= v[1]}
+    top = sorted(worst.items(),
+                 key=lambda kv: -kv[1][0] / max(kv[1][1], 1e-30))[:4]
+    print(f"   2-layer loss kernels {lk:.6f}, plain {lp:.6f}, plain fp32 "
+          f"{l32:.6f}; per-leaf relative gradient error (kernels vs plain, "
+          f"plain bf16 vs fp32), worst ratios: {top}", flush=True)
+    run.report["train_grad_check"] = dict(
+        loss_kernels=lk, loss_plain=lp, loss_plain_fp32=l32,
+        rel_err_vs_floor=worst)
+    run.check(not bad, f"every leaf's gradient on the kernel path is as "
+              f"close to the plain path as bf16 is to fp32 ({len(worst)} "
+              f"leaves; over the floor: {sorted(bad)})")
+    del trainer, model, params, gk, gp, g32, mb
+    torch.cuda.empty_cache()
+
+    # interrupted at step 2 and resumed vs uninterrupted
+    a, _ = _small_trainer(torch, dev, 2, _sft_opt(), work / "a")
+    la = [a.step_on_batch(b)[0] for b in batches]
+    del a
+    b, _ = _small_trainer(torch, dev, 2, _sft_opt(), work / "r")
+    for bt in batches[:2]:
+        b.step_on_batch(bt)
+    b.save()
+    del b
+    c, _ = _small_trainer(torch, dev, 2, _sft_opt(), work / "r",
+                          seed=SEED + 5)
+    c.try_resume()
+    lc = [c.step_on_batch(bt)[0] for bt in batches[2:]]
+    del c
+    torch.cuda.empty_cache()
+    print(f"   2-layer losses uninterrupted {la}, resumed steps 3-4 {lc}")
+    run.report["train_resume"] = dict(uninterrupted=la, resumed=lc)
+    run.check(lc == la[2:], "resumed step 3-4 losses equal the "
+              "uninterrupted run's")
+
+    # constant lr 1e-4 on one repeated batch: the loss falls
+    d, _ = _small_trainer(torch, dev, 2, _sft_opt(
+        learning_rate=1e-4, lr_scheduler="constant", warmup_steps=0,
+        gradient_accumulation_steps=1), work / "d")
+    one = {k: v[:SFT_B] for k, v in batches[0].items()}
+    ld = [d.step_on_batch(one)[0] for _ in range(10)]
+    del d
+    torch.cuda.empty_cache()
+    print(f"   2-layer, lr 1e-4, one batch x 10 steps: losses {ld}")
+    run.report["train_overfit"] = ld
+    run.check(ld[-1] < ld[0] - 0.5, f"loss falls on a repeated batch "
+              f"({ld[0]:.4f} -> {ld[-1]:.4f}, by more than 0.5)")
 
 
 if __name__ == "__main__":

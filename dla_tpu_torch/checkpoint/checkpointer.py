@@ -1,22 +1,32 @@
-"""Read-only access to checkpoints written by ``dla_tpu.checkpoint``.
+"""Checkpoints in the format of ``dla_tpu.checkpoint`` (format 2).
 
-Format 2 (``index.json``): whole leaves carry ``{file, shape, dtype}``;
-sharded leaves carry ``{shape, dtype, shards: [{file, index: [[start,
-stop], ...]}]}``, one ``.npy`` per distinct shard region. Format-1
-checkpoints (whole-file only) are the one-shard case. The port reads
-them into host numpy trees; writing checkpoints comes with training.
+``index.json``: whole leaves carry ``{file, shape, dtype}``; sharded
+leaves carry ``{shape, dtype, shards: [{file, index: [[start, stop],
+...]}]}``, one ``.npy`` per distinct shard region. Format-1 checkpoints
+(whole-file only) are the one-shard case. Leaves are named by their
+dotted tree path (``params.layers.wq``).
 
-numpy has no bfloat16: a bf16 leaf (stored by npy as 2-byte voids) is
-returned widened to float32, which is exact; the caller casts it back.
+``load_tree_numpy`` reads any of them into host numpy trees.
+``Checkpointer`` writes whole-leaf checkpoints the JAX package reads
+(``step_XXXXXXXX/`` or a named tag, an atomic ``latest`` pointer,
+keep-last-N) and restores them in place into a tree of tensors.
+
+numpy has no bfloat16: a bf16 leaf is stored as npy 2-byte voids with
+``dtype: bfloat16`` in the index (the JAX package's encoding) and is read
+back widened to float32, which is exact; the caller casts it back.
 """
 from __future__ import annotations
 
 import json
 import math
+import os
+import re
+import shutil
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
+import torch
 
 SEP = "."
 
@@ -170,3 +180,104 @@ def is_checkpoint_path(path) -> bool:
         return True
     except (FileNotFoundError, NotADirectoryError):
         return False
+
+
+# ------------------------------------------------------------------ write
+
+
+def flatten_tree(tree: Any, prefix: str = "") -> List[Tuple[str, Any]]:
+    """(dotted path, leaf) pairs of nested dicts, in key order."""
+    if not isinstance(tree, dict):
+        return [(prefix, tree)]
+    out: List[Tuple[str, Any]] = []
+    for k, v in tree.items():
+        out += flatten_tree(v, f"{prefix}{SEP}{k}" if prefix else str(k))
+    return out
+
+
+def _host_array(leaf: torch.Tensor) -> Tuple[np.ndarray, str]:
+    """A tensor as the array npy stores and the index's dtype name."""
+    t = leaf.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view("V2"), "bfloat16"
+    arr = t.numpy()
+    return arr, str(arr.dtype)
+
+
+def _leaf_filename(path: str) -> str:
+    return re.sub(r"[^A-Za-z0-9_.\-]", "_", path) + ".npy"
+
+
+class Checkpointer:
+    """Whole-leaf format-2 checkpoints under ``output_dir``: each save
+    goes to a staging directory renamed into place, then ``latest``
+    names it (write-aside + rename), then all but the newest
+    ``keep_last_n`` ``step_*`` directories are removed."""
+
+    def __init__(self, output_dir, keep_last_n: int = 3):
+        self.dir = Path(output_dir)
+        self.keep_last_n = keep_last_n
+
+    def save(self, step: int, tree: Any, aux: Optional[Dict[str, Any]] = None,
+             tag: Optional[str] = None) -> Path:
+        tag = tag or f"step_{step:08d}"
+        final = self.dir / tag
+        tmp = self.dir / f".tmp_{tag}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        index = {"format": 2, "step": int(step), "aux": aux or {},
+                 "leaves": {}}
+        for path, leaf in flatten_tree(tree):
+            arr, dtype = _host_array(leaf)
+            fname = _leaf_filename(path)
+            np.save(tmp / fname, arr)
+            index["leaves"][path] = {"file": fname, "shape": list(arr.shape),
+                                     "dtype": dtype}
+        with (tmp / "index.json").open("w") as fh:
+            json.dump(index, fh)
+        if final.exists():
+            shutil.rmtree(final)
+        tmp.rename(final)
+        latest_tmp = self.dir / ".latest.tmp"
+        with latest_tmp.open("w") as fh:
+            fh.write(tag)
+            fh.flush()
+            os.fsync(fh.fileno())
+        os.replace(latest_tmp, self.dir / "latest")
+        if self.keep_last_n > 0:
+            steps = sorted(d for d in self.dir.glob("step_*") if d.is_dir())
+            for old in steps[: max(0, len(steps) - self.keep_last_n)]:
+                shutil.rmtree(old, ignore_errors=True)
+        return final
+
+    def latest_tag(self) -> Optional[str]:
+        return _latest_tag(self.dir) if self.dir.is_dir() else None
+
+    def peek_aux(self, tag: str) -> Dict[str, Any]:
+        """A checkpoint's aux dict, without reading any leaf."""
+        with (self.dir / tag / "index.json").open() as fh:
+            return json.load(fh).get("aux", {})
+
+    def restore(self, tree: Any, tag: Optional[str] = None
+                ) -> Dict[str, Any]:
+        """Copy a checkpoint's leaves in place into the tensors of
+        ``tree`` (same paths and shapes; every leaf of ``tree`` must be
+        present). Returns the aux dict."""
+        tag = tag or self.latest_tag()
+        if tag is None:
+            raise FileNotFoundError(f"No checkpoint under {self.dir}")
+        ckpt = self.dir / tag
+        with (ckpt / "index.json").open() as fh:
+            index = json.load(fh)
+        for path, dst in flatten_tree(tree):
+            meta = index["leaves"].get(path)
+            if meta is None:
+                raise KeyError(f"checkpoint {ckpt} has no leaf {path!r}")
+            arr = _ShardReader.from_meta(ckpt, meta).full()
+            if tuple(arr.shape) != tuple(dst.shape):
+                raise ValueError(f"{path}: checkpoint shape {arr.shape} != "
+                                 f"{tuple(dst.shape)}")
+            with torch.no_grad():
+                dst.copy_(torch.from_numpy(np.array(arr)))
+        return index.get("aux", {})

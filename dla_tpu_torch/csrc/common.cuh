@@ -55,6 +55,29 @@ __device__ __forceinline__ float round_bf16(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
 }
 
+struct Strides {  // element strides of a [B, heads, rows, D] view
+  long long b, h, t;
+};
+
+// Stage rows [r0, r0 + ROWS) of head h of batch b into shared memory with
+// a padded row pitch of D + 8 (conflict-free mma fragment reads); rows at
+// or past `rows` are zero-filled. 16-byte loads: the head dim must be
+// contiguous and the row strides multiples of 8 elements.
+template <int D, int ROWS, int THREADS>
+__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
+                                          Strides st, int b, int h, int r0,
+                                          int rows) {
+  constexpr int LD = D + 8, CPR = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    uint4 v = make_uint4(0, 0, 0, 0);
+    if (r0 + r < rows)
+      v = *reinterpret_cast<const uint4*>(
+          src + b * st.b + h * st.h + (long long)(r0 + r) * st.t + cc);
+    *reinterpret_cast<uint4*>(&dst[r * LD + cc]) = v;
+  }
+}
+
 __device__ __forceinline__ float warp_sum(float x) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);

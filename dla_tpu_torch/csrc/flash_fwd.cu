@@ -29,27 +29,9 @@
 namespace {
 
 using dla::bf16;
+using dla::Strides;
 
 constexpr int BQ = 64, BKV = 64, THREADS = 128;
-
-struct Strides {  // element strides of a [B, heads, rows, D] view
-  long long b, h, t;
-};
-
-template <int D>
-__device__ __forceinline__ void load_rows(bf16* dst, const bf16* src,
-                                          Strides st, int b, int h, int r0,
-                                          int rows) {
-  constexpr int LD = D + 8, CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += THREADS) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
-    uint4 v = make_uint4(0, 0, 0, 0);
-    if (r0 + r < rows)
-      v = *reinterpret_cast<const uint4*>(
-          src + b * st.b + h * st.h + (long long)(r0 + r) * st.t + cc);
-    *reinterpret_cast<uint4*>(&dst[r * LD + cc]) = v;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(THREADS)
@@ -68,7 +50,7 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const int gid = lane / 4, tig = lane % 4;
 
   // the query tile goes through shared memory into A fragments
-  load_rows<D>(k_s, q, qs, b, h, q0, T);
+  dla::load_rows<D, BQ, THREADS>(k_s, q, qs, b, h, q0, T);
   __syncthreads();
   uint32_t qa[D / 16][4];
 #pragma unroll
@@ -99,8 +81,8 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int k0 = j * BKV;
     if (k0 > q0 + BQ - 1) break;  // above the diagonal: this and all later
     if (window > 0 && !(q0 - k0 - BKV + 1 < window)) continue;
-    load_rows<D>(k_s, k, ks, b, kh, k0, S);
-    load_rows<D>(v_s, v, vs, b, kh, k0, S);
+    dla::load_rows<D, BKV, THREADS>(k_s, k, ks, b, kh, k0, S);
+    dla::load_rows<D, BKV, THREADS>(v_s, v, vs, b, kh, k0, S);
     __syncthreads();
 
     float s[BKV / 8][4];

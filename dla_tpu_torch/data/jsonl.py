@@ -1,11 +1,12 @@
-"""JSONL IO for the generation CLI: the same on-disk contract and
-record striding as ``dla_tpu.data.jsonl`` (pure-Python line iteration;
-the JAX package's native byte-range indexer returns identical records)."""
+"""JSONL IO for the data loaders, the generation CLI and the metrics log:
+the same on-disk contract and record striding as ``dla_tpu.data.jsonl``
+(pure-Python line iteration; the JAX package's native byte-range indexer
+returns identical records)."""
 from __future__ import annotations
 
 import json
 from pathlib import Path
-from typing import Any, Dict, List, Union
+from typing import Any, Dict, Iterable, List, Union
 
 PathLike = Union[str, Path]
 
@@ -30,6 +31,14 @@ def read_jsonl(path: PathLike, shard_index: int = 0,
                     out.append(json.loads(line))
                 pos += 1
     return out
+
+
+def write_jsonl(path: PathLike, records: Iterable[Dict[str, Any]]) -> None:
+    p = Path(path)
+    p.parent.mkdir(parents=True, exist_ok=True)
+    with p.open("w", encoding="utf-8") as fh:
+        for rec in records:
+            fh.write(json.dumps(rec, ensure_ascii=False) + "\n")
 
 
 def append_jsonl(path: PathLike, record: Dict[str, Any]) -> None:

@@ -1,0 +1,92 @@
+"""Instruction records from local JSONL, alone or as a weighted mixture
+(``dla_tpu.data.loaders``, the SFT part). HF-hub sources need the network
+and the ``datasets`` package and raise."""
+from __future__ import annotations
+
+import random
+from typing import Any, Dict, List
+
+from dla_tpu_torch.data.datasets import InstructionDataset
+from dla_tpu_torch.data.jsonl import read_jsonl
+from dla_tpu_torch.data.tokenizers import Tokenizer
+
+# keys of the outer data config a mixture entry never inherits: an entry
+# names its own source
+_SOURCE_KEYS = ("source", "hf_path", "hf_name", "path", "train_path",
+                "eval_path", "prompt_path", "preference_path", "split",
+                "train_split", "eval_split", "columns")
+
+
+def _apply_limit(records: List[Dict[str, Any]], limit) -> List[Dict[str, Any]]:
+    return records[: int(limit)] if limit else records
+
+
+def _load_mixture(cfg: Dict[str, Any], split: str, loader
+                  ) -> List[Dict[str, Any]]:
+    """``data.mixture``: per-source fragments with a ``weight`` (default
+    1.0), inheriting the outer config's shaping keys. The epoch holds
+    ``mixture_size`` records (default: all sources' total) apportioned by
+    largest remainder; undersized sources repeat after a seeded shuffle;
+    the epoch order is shuffled with ``mixture_seed`` — the JAX package's
+    draws exactly (Python's ``random`` seeded with the same strings)."""
+    entries = cfg["mixture"]
+    if not entries:
+        raise ValueError("data.mixture is empty")
+    outer = {k: v for k, v in cfg.items()
+             if k not in ("mixture", "mixture_size", "mixture_seed")
+             and k not in _SOURCE_KEYS}
+    per = [loader({**outer, **e}, split) for e in entries]
+    for e, recs in zip(entries, per):
+        if not recs:
+            raise ValueError(f"mixture source produced no records: {e}")
+    weights = [max(0.0, float(e.get("weight", 1.0))) for e in entries]
+    wsum = sum(weights)
+    if wsum <= 0:
+        raise ValueError("mixture weights sum to zero")
+    total = int(cfg.get("mixture_size", sum(len(r) for r in per)))
+    quotas = [w / wsum * total for w in weights]
+    counts = [int(q) for q in quotas]
+    rema = sorted(range(len(quotas)), key=lambda i: quotas[i] - counts[i],
+                  reverse=True)
+    for i in rema[: total - sum(counts)]:
+        counts[i] += 1
+
+    seed = int(cfg.get("mixture_seed", 0))
+    out: List[Dict[str, Any]] = []
+    for si, (recs, n) in enumerate(zip(per, counts)):
+        order = list(range(len(recs)))
+        random.Random(f"{seed}:src{si}").shuffle(order)
+        out.extend(recs[order[i % len(recs)]] for i in range(n))
+    random.Random(f"{seed}:epoch").shuffle(out)
+    return out
+
+
+def load_instruction_records(cfg: Dict[str, Any],
+                             split: str = "train") -> List[Dict[str, Any]]:
+    """{prompt, response} records from ``<split>_path`` (``path`` for
+    train); ``data.mixture`` composes several sources for the train
+    split only (eval stays the outer config's held-out file)."""
+    if cfg.get("mixture") and split == "train":
+        return _load_mixture(cfg, split, load_instruction_records)
+    if cfg.get("source", "local") == "hf":
+        raise NotImplementedError(
+            "data source 'hf' is not ported (it needs the network and the "
+            "datasets package; ROADMAP.md §3): point data.train_path / "
+            "eval_path at local JSONL")
+    path = cfg.get(f"{split}_path")
+    if path is None and split == "train":
+        path = cfg.get("path")
+    if path is None:
+        raise ValueError(f"No {split}_path in data config")
+    return _apply_limit(read_jsonl(path), cfg.get("limit"))
+
+
+def build_instruction_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,
+                              split: str = "train") -> InstructionDataset:
+    return InstructionDataset(
+        tokenizer=tokenizer,
+        max_length=int(cfg.get("max_length",
+                               cfg.get("max_seq_length", 2048))),
+        mask_prompt=bool(cfg.get("mask_prompt", True)),
+        records=load_instruction_records(cfg, split),
+    )

@@ -1,29 +1,33 @@
 """Decoder-only transformer (llama family) for PyTorch, single device.
 
 The counterpart of ``dla_tpu.models.transformer.Transformer`` on the
-generation path: initialisation, int8 weight quantization, prefill into
-a contiguous KV cache (bf16 or int8 with K-major scales) and one-token
-decode steps. The parameter tree keeps the JAX package's layout — the
+generation and SFT paths: initialisation, int8 weight quantization,
+prefill into a contiguous KV cache (bf16 or int8 with K-major scales),
+one-token decode steps, and the differentiable training forward
+(``hidden_states`` / ``apply``, with per-layer activation
+checkpointing). The parameter tree keeps the JAX package's layout — the
 same leaf names, stacked ``[L, d_in, d_out]`` layer leaves, ``x @ W`` —
 so trees convert between the packages with no transposes
 (``models.weights.params_from_jax``), and the model stays functional:
 every method takes the parameter dict, as the JAX model does.
 
-Kernels on this path: prefill attention through the flash forward kernel
-(``attention="flash"``), every projection of an int8 tree and the int8
-``lm_head`` through the int8 matmul kernel, and every decode step's
-attention through the decode-attention kernel (int8 cache under
+Kernels on these paths: prefill and training attention through the
+flash kernels (``attention="flash"``; forward, and dQ / dK-dV in the
+backward), every projection of an int8 tree and the int8 ``lm_head``
+through the int8 matmul kernel, and every decode step's attention
+through the decode-attention kernel (int8 cache under
 ``decode_kernel="auto"``, any cache under ``"on"``). The TPU-only gates
 are gone: flash needs no 128-multiple length (the kernel masks ragged
 tails) and the decode kernel has no head_dim % 128 or 8-row group limit.
 There is no mesh: sharding constraints and shard_map wrappers have no
 counterpart here.
 
-Not ported yet (``__init__`` raises, naming the slice): the phi / gemma /
-gemma2 block variants, alternating-layer sliding windows, MoE, LoRA,
-interleaved pipeline storage; and the training-side forward
-(``hidden_states``/``apply``), multi-token ``decode_block`` and the paged
-serving entry points.
+Not ported yet (``__init__`` or ``hidden_states`` raises, naming the
+ROADMAP item): the phi / gemma / gemma2 block variants, alternating-layer
+sliding windows, MoE, LoRA, interleaved pipeline storage, pipeline
+parallelism, ``remat: dots``; multi-token ``decode_block`` and the paged
+serving entry points. Long flash-ineligible sequences take the full
+einsum attention (``chunked_causal_attention`` is not ported).
 
 Difference in mutation: ``decode_step`` writes the new KV column into
 the cache tensors in place and returns the same dict (the JAX version
@@ -36,6 +40,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from dla_tpu_torch.models.config import ModelConfig
 from dla_tpu_torch.ops import decode_kernel, flash_attention, quant_matmul
@@ -210,7 +215,11 @@ class Transformer(nn.Module):
     # ---------------------------------------------------------------- block
 
     def _embed(self, params: Params, ids: torch.Tensor) -> torch.Tensor:
-        return params["embed"]["embedding"][ids.long()].to(self.adtype)
+        # F.embedding rather than indexing: its CUDA backward sums the
+        # rows of repeated ids in a fixed order (indexing's accumulates
+        # with atomics), which keeps training steps reproducible
+        return torch.nn.functional.embedding(
+            ids.long(), params["embed"]["embedding"]).to(self.adtype)
 
     def _final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
         return rms_norm(x, params["final_norm"], self.cfg.rms_norm_eps)
@@ -238,14 +247,17 @@ class Transformer(nn.Module):
                      or cfg.query_pre_attn_scalar == cfg.head_dim_))
 
     def _attention(self, q, k, v, kv_mask, q_positions, kv_positions,
-                   allow_flash: bool) -> torch.Tensor:
+                   allow_flash: bool,
+                   segment_ids: Optional[torch.Tensor] = None
+                   ) -> torch.Tensor:
         """Flash kernel for the full-sequence causal path on right-padded
         batches (pad keys sit above every real query's diagonal, so no
-        mask is needed); the einsum path otherwise."""
+        mask is needed) and on packed ones (the segment ids go to the
+        kernel); the einsum path otherwise."""
         window = self.cfg.sliding_window or None
         if allow_flash and q.shape[1] == k.shape[1]:
             return flash_attention.flash_causal_attention(
-                q, k, v, window=window)
+                q, k, v, segment_ids=segment_ids, window=window)
         return causal_attention(
             q, k, v, kv_segment_mask=kv_mask, q_positions=q_positions,
             kv_positions=kv_positions, window=window,
@@ -254,7 +266,8 @@ class Transformer(nn.Module):
 
     def _block(self, layer: Params, x: torch.Tensor, cos, sin,
                kv_mask: Optional[torch.Tensor], positions: torch.Tensor,
-               allow_flash: bool
+               allow_flash: bool,
+               segment_ids: Optional[torch.Tensor] = None,
                ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
         """One decoder block over a full sequence. Returns (output,
         (k, v)) — k/v for the cache writes."""
@@ -268,10 +281,98 @@ class Transformer(nn.Module):
         q = apply_rotary(q, cos, sin, rotary_dim=cfg.rotary_dim_)
         k = apply_rotary(k, cos, sin, rotary_dim=cfg.rotary_dim_)
         attn = self._attention(q, k, v, kv_mask, positions, positions,
-                               allow_flash)
+                               allow_flash, segment_ids)
         x = x + self._proj(layer, "wo", attn.reshape(b, t, -1))
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
         return x + self._mlp(layer, h), (k, v)
+
+    def _layer_list(self, params: Params):
+        """Per-layer parameter dicts: ``params["layers"]`` is either the
+        stacked [L, ...] tree or already a list of per-layer dicts (the
+        trainer's per-layer views, which are its autograd leaves: indexing
+        a stacked leaf would make every layer's backward write a
+        full-size zero gradient for the whole stack)."""
+        layers = params["layers"]
+        if isinstance(layers, (list, tuple)):
+            return layers
+        return [_layer(layers, i) for i in range(self.cfg.num_layers)]
+
+    # ---------------------------------------------------- training forward
+
+    def hidden_states(
+        self,
+        params: Params,
+        input_ids: torch.Tensor,                          # [B, T]
+        attention_mask: Optional[torch.Tensor] = None,    # [B, T] 1 = real
+        segment_ids: Optional[torch.Tensor] = None,       # [B, T] packing
+    ) -> torch.Tensor:
+        """Full-sequence forward up to the final norm, [B, T, D],
+        differentiable in the parameters.
+
+        Positions: the index among real tokens (cumsum of the mask)
+        without segments, restarting at each packed segment with them,
+        else arange. Under flash the kernel takes the segment ids and no
+        mask is built (pad keys sit above every real query's diagonal);
+        otherwise attention_mask AND same-segment form an explicit
+        [B, T, T] mask for ``causal_attention``. ``remat: full``
+        checkpoints every layer (its forward runs again in the
+        backward)."""
+        cfg = self.cfg
+        if cfg.remat not in ("none", "full"):
+            raise NotImplementedError(
+                f"remat {cfg.remat!r} is not ported yet (ROADMAP.md §3, "
+                "training items); use 'full' or 'none'")
+        if cfg.pipeline_stages > 1:
+            raise NotImplementedError(
+                "pipeline parallelism is not ported yet (ROADMAP.md §1, "
+                "multi-GPU parallelism)")
+        b, t = input_ids.shape
+        dev = input_ids.device
+        ar = torch.arange(t, device=dev)[None, :]
+        if segment_ids is None and attention_mask is not None:
+            positions = (attention_mask.long().cumsum(1) - 1).clamp(min=0)
+        elif segment_ids is not None:
+            start = torch.ones((b, t), dtype=torch.bool, device=dev)
+            start[:, 1:] = segment_ids[:, 1:] != segment_ids[:, :-1]
+            first = torch.where(start, ar, torch.zeros_like(ar))
+            positions = ar - torch.cummax(first, dim=1).values
+        else:
+            positions = ar.expand(b, t)
+
+        allow_flash = self._flash_eligible()
+        kv_mask = None
+        if not allow_flash:
+            if attention_mask is not None:
+                kv_mask = attention_mask[:, None, :].bool().expand(b, t, t)
+            if segment_ids is not None:
+                same = segment_ids[:, :, None] == segment_ids[:, None, :]
+                kv_mask = same if kv_mask is None else kv_mask & same
+        flash_segs = segment_ids if allow_flash else None
+
+        x = self._embed(params, input_ids)
+        cos, sin = rotary_angles(positions, cfg.rotary_dim_, cfg.rope_theta,
+                                 scaling=cfg.rope_scaling)
+
+        def layer_fwd(layer, x):
+            return self._block(layer, x, cos, sin, kv_mask, positions,
+                               allow_flash, flash_segs)[0]
+
+        remat = cfg.remat == "full" and torch.is_grad_enabled()
+        for layer in self._layer_list(params):
+            if remat:
+                x = checkpoint(layer_fwd, layer, x, use_reentrant=False,
+                               preserve_rng_state=False)
+            else:
+                x = layer_fwd(layer, x)
+        return self._final_norm(params, x)
+
+    def apply(self, params: Params, input_ids: torch.Tensor,
+              attention_mask: Optional[torch.Tensor] = None,
+              segment_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Logits forward: [B, T] -> [B, T, V] in activation dtype."""
+        h = self.hidden_states(params, input_ids, attention_mask,
+                               segment_ids)
+        return self.unembed(params, h)
 
     def unembed_params(self, params: Params
                        ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:

@@ -42,6 +42,16 @@ _SIGNATURES = {
     # window, stream
     "dla_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.POINTER(ctypes.c_longlong), _F, _I, _P],
+    # q, k, v, dout, lse, delta, qseg, kseg, dq, B, H, KH, T, S, D,
+    # strides, scale, window, stream
+    "dla_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                         _I, _I, ctypes.POINTER(ctypes.c_longlong), _F, _I,
+                         _P],
+    # q, k, v, dout, lse, delta, qseg, kseg, dk, dv, B, H, KH, T, S, D,
+    # strides, scale, window, stream
+    "dla_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
+                          _F, _I, _P],
     # q, kc, vc, ks, vs, kn, vn, bias, ws, out, B, S, K, G, D, bound,
     # cache_int8, scale, softcap, out_bf16, stream
     "dla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,

@@ -15,14 +15,11 @@ response, streamed JSONL ``{prompt, teacher_response}``. Reward scoring
 from __future__ import annotations
 
 import argparse
-import random
-
-import numpy as np
-import torch
 
 from dla_tpu_torch.data.jsonl import append_jsonl, read_jsonl
 from dla_tpu_torch.generation.engine import GenerationConfig, GenerationEngine
 from dla_tpu_torch.training.model_io import load_causal_lm
+from dla_tpu_torch.training.utils import seed_everything
 
 PROMPT_TEMPLATE = "{prompt}\n\n"
 
@@ -46,13 +43,6 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--draft_model_name_or_path", default=None)
     p.add_argument("--speculative_gamma", type=int, default=4)
     return p.parse_args(argv)
-
-
-def seed_everything(seed: int, device) -> torch.Generator:
-    """Seed host RNGs and return the run's root generator on ``device``."""
-    random.seed(seed)
-    np.random.seed(seed % (2 ** 32))
-    return torch.Generator(device=device).manual_seed(seed)
 
 
 def main(argv=None, device="cuda") -> None:

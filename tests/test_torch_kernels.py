@@ -2,7 +2,8 @@
 
 Each port kernel wrapper, called on CPU tensors, computes its plain
 PyTorch version; here that version is held against the JAX package's
-Pallas kernel run in interpret mode on the same numpy inputs. (The CUDA
+Pallas kernel run in interpret mode on the same numpy inputs (the flash
+backward through ``jax.vjp``). (The CUDA
 kernels themselves are held against the same plain versions on the
 card by ``chip_smoke.py``.) Tolerances: fp32 1e-5 (summation order
 only), bf16 2e-2 (a bf16 ulp at |x| <= 2 plus rounding-point drift)."""
@@ -17,7 +18,9 @@ from dla_tpu.ops.quant_matmul import int8_matmul as j_int8_matmul
 from dla_tpu_torch.ops.decode_kernel import flash_decode_attention
 from dla_tpu_torch.ops.flash_attention import (
     flash_attention_forward,
+    flash_backward_plain,
     flash_causal_attention,
+    flash_forward_plain,
 )
 from dla_tpu_torch.ops.quant_matmul import int8_matmul
 
@@ -94,10 +97,89 @@ def test_flash_plain_lse_and_masked_rows():
     assert torch.all(out[0, 5] == 0) and torch.isfinite(out).all()
 
 
-def test_flash_refuses_autograd():
-    x = torch.zeros((1, 4, 1, 16), requires_grad=True)
-    with pytest.raises(NotImplementedError):
-        flash_causal_attention(x, x, x)
+# ------------------------------------------------------------- flash bwd
+
+# bf16: dS is rounded to bf16 before its products in both packages, so a
+# one-ulp flip of a dS entry near a rounding point moves a gradient by
+# ~2^-8 of its scale; 3e-2 at |grad| <= ~4 covers that, fp32 sums only
+# differ in order (1e-4).
+BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [
+    dict(b=2, t=32, h=4, kh=2, bq=8, bk=16),                 # GQA
+    dict(b=1, t=48, h=2, kh=2, bq=16, bk=8, window=10),      # window
+    dict(b=2, t=32, h=4, kh=1, bq=16, bk=16, segments=True),  # packing
+    dict(b=2, t=40, h=4, kh=2, bq=8, bk=8, segments=True),    # ragged T
+])
+def test_flash_backward_plain_matches_pallas(case, dtype):
+    """dQ, dK, dV of ``flash_backward_plain`` (what the autograd Function
+    runs on CPU tensors) against ``jax.vjp`` of the Pallas flash
+    attention (its two backward kernels, interpret mode) for the same
+    cotangent."""
+    import jax
+    rs = np.random.RandomState(6)
+    b, t, h, kh, d = case["b"], case["t"], case["h"], case["kh"], 16
+    q, qt = _pair(rs.randn(b, t, h, d), dtype)
+    k, kt = _pair(rs.randn(b, t, kh, d), dtype)
+    v, vt = _pair(rs.randn(b, t, kh, d), dtype)
+    g, gt = _pair(rs.randn(b, t, h, d), dtype)
+    seg = None
+    if case.get("segments"):
+        seg = np.zeros((b, t), np.int32)
+        seg[0, :12], seg[0, 12:27] = 1, 2            # two segments + pads
+        seg[1, :t - 2] = 1
+    jseg = None if seg is None else jnp.asarray(seg)
+    tseg = None if seg is None else torch.from_numpy(seg)
+
+    def f(q, k, v):
+        return j_flash(q, k, v, segment_ids=jseg, block_q=case["bq"],
+                       block_k=case["bk"], interpret=True,
+                       window=case.get("window"))
+    _, vjp = jax.vjp(f, q, k, v)
+    refs = vjp(g)
+    out, lse = flash_attention_forward(qt, kt, vt, segment_ids=tseg,
+                                       window=case.get("window"))
+    grads = flash_backward_plain(qt, kt, vt, out, lse, gt, segment_ids=tseg,
+                                 window=case.get("window"))
+    for got, ref, x in zip(grads, refs, (qt, kt, vt)):
+        assert got.dtype == x.dtype and got.shape == x.shape
+        np.testing.assert_allclose(_np(got), _np(ref), atol=BWD_TOL[dtype],
+                                   rtol=BWD_TOL[dtype])
+
+
+@pytest.mark.parametrize("case", [
+    dict(kh=2),
+    dict(kh=1, window=5),
+    dict(kh=2, segments=True),
+])
+def test_flash_autograd_matches_autograd_of_plain_forward(case):
+    """The autograd Function's backward (the plain backward on CPU
+    tensors) equals torch.autograd through ``flash_forward_plain``, fp32:
+    summation order only (1e-5)."""
+    rs = np.random.RandomState(7)
+    b, t, h, d = 2, 24, 4, 8
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    q, k, v = mk(b, t, h, d), mk(b, t, case["kh"], d), mk(b, t, case["kh"], d)
+    g = mk(b, t, h, d)
+    seg = None
+    if case.get("segments"):
+        seg = torch.ones((b, t), dtype=torch.int32)
+        seg[:, 10:] = 2
+        seg[1, 20:] = 0
+    kw = dict(segment_ids=seg, window=case.get("window"))
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = flash_causal_attention(*leaves, **kw)
+    got = torch.autograd.grad(out, leaves, g)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    ref_out, _ = flash_forward_plain(*leaves, **kw)
+    want = torch.autograd.grad(ref_out, leaves, g)
+    np.testing.assert_allclose(out.detach().numpy(),
+                               ref_out.detach().numpy(), atol=1e-6)
+    for a, r in zip(got, want):
+        np.testing.assert_allclose(a.numpy(), r.numpy(), atol=1e-5,
+                                   rtol=1e-5)
 
 
 # ------------------------------------------------------- decode attention

@@ -7,21 +7,27 @@ Phases (any failure fails the run; the phases all run so one call shows
 every fault, and the result lines are printed only when all passed):
 
 1. build   — compile the CUDA kernels from ``dla_tpu_torch/csrc`` (nvcc,
-             sm_90a, one process per source) and print the build time and
-             ptxas resource usage;
+             sm_90a, one process per source) and print the build time,
+             ptxas resource usage, a summary line per flash-backward
+             kernel (registers, spills, dynamic shared memory) and, where
+             ``cuobjdump`` exists, the HGMMA (wgmma) count of each
+             kernel's SASS;
 2. parity  — hold each kernel against its plain PyTorch version on the
              card at the paths' shapes: flash forward at T=128 (rollout),
              decode attention over an int8 cache of S=384 with the fill
              mid-chunk and NaN past it, the int8 matmul at M=64 and M=8192
              for every projection and lm_head; the flash backward (dQ,
              dK/dV) at the SFT shape with packed segments, with a window,
-             at ragged T=77 and at head_dim 128, and the autograd
-             Function's gradients against autograd through the plain
-             forward;
+             at ragged T=77, at head_dim 128 and at head_dim 96 (packed
+             segments and a window), and the
+             autograd Function's gradients against autograd through the
+             plain forward;
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
-             flash forward, dQ and dK/dV also at the SFT shape;
+             flash forward, dQ and dK/dV also at the SFT shape, the
+             backward kernels also with packed segment ids (bound from
+             the live pairs of those ids);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -143,8 +149,11 @@ def main() -> int:
         print(f"   built {path.relative_to(ROOT)} in "
               f"{time.perf_counter() - t0:.1f} s")
         for line in log.splitlines():
-            if "registers" in line or "spill" in line or line.startswith("=="):
+            if ("registers" in line or "spill" in line or "warning" in line
+                    or "Performance" in line or line.startswith("==")):
                 print("   " + line.strip())
+        run.report["flash_bwd_build"] = flash_bwd_build_summary(
+            log, path, _native)
 
     with run.phase("parity"):
         parity(run, torch, dev)
@@ -182,6 +191,58 @@ def main() -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))
     return 0
+
+
+def flash_bwd_build_summary(log: str, lib_path: Path, native):
+    """Per flash-backward kernel instantiation: ptxas registers and spill
+    bytes (from the build log), dynamic shared memory per block (asked of
+    the library) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
+    instructions in its SASS. Printed one line each."""
+    import re
+    import shutil
+    stats, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m and cur:
+            stats.setdefault(cur, {})["spill"] = (int(m[1]), int(m[2]))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            stats.setdefault(cur, {})["registers"] = int(m[1])
+    hgmma = {}
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(tool).is_file():
+        sass = subprocess.run([tool, "-sass", str(lib_path)],
+                              capture_output=True, text=True,
+                              timeout=120).stdout
+        fn = None
+        for line in sass.splitlines():
+            m = re.search(r"Function : (\S+)", line)
+            if m:
+                fn = m.group(1)
+            elif fn and "HGMMA" in line:
+                hgmma[fn] = hgmma.get(fn, 0) + 1
+    lib = native.library()
+    out = {}
+    for mangled, st in sorted(stats.items()):
+        m = re.search(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", mangled)
+        if not m:
+            continue
+        name = f"{m[1]}<{m[2]}>"
+        smem = lib.dla_flash_bwd_smem_bytes(int("dkv" in m[1]), int(m[2]))
+        row = dict(registers=st.get("registers"), spill_bytes=st.get("spill"),
+                   dynamic_smem_bytes=smem,
+                   hgmma=hgmma.get(mangled) if hgmma else "no cuobjdump")
+        out[name] = row
+        print(f"   ptxas {name}: {row['registers']} registers, spill "
+              f"stores/loads {row['spill_bytes']} bytes, {smem} bytes of "
+              f"dynamic shared memory, HGMMA in SASS: {row['hgmma']}",
+              flush=True)
+    return out
 
 
 # ------------------------------------------------------------------ inputs
@@ -361,15 +422,19 @@ def parity_backward(run, torch, dev, g, errs):
          (SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD), "seg"),
         ("window 37, T300", (2, 300, 8, 2, 64), "win"),
         ("ragged T77 D64", (3, 77, 4, 2, 64), None),
-        ("llama3-8b heads D128, T256", (2, 256, HEADS, KV_HEADS, HD), None)]
+        ("llama3-8b heads D128, T256", (2, 256, HEADS, KV_HEADS, HD), None),
+        ("phi3-mini head dim 96, ragged T130 GQA, packed segments, "
+         "window 50", (2, 130, 8, 2, 96), "seg+win")]
     for label, (b, t, h, kh, d), extra in cases:
         q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
             mk(b, t, h, d)
         kw = {}
-        if extra == "seg":
+        if extra in ("seg", "seg+win"):
             kw["segment_ids"] = _segments(torch, dev, b, t, SEED)
         if extra == "win":
             kw["window"] = 37
+        if extra == "seg+win":
+            kw["window"] = 50
         out, lse = fa.flash_attention_forward(q, k, v, **kw)
         got = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
         ref = fa.flash_backward_plain(q, k, v, out, lse, do, **kw)
@@ -584,7 +649,14 @@ def timing_sft(run, torch, dev, g):
     work the inputs need and SDPA computes the same function). One
     causal T x T x D product is 2 * B * H * D * T(T+1)/2 FLOPs: the
     forward does 2, dQ 3 (S, dP, dS K) and dK/dV 4 (S, dP, P^T dO,
-    dS^T Q)."""
+    dS^T Q). dQ reads q, dO, O (for delta), k, v and lse and writes dq
+    and delta; dK/dV reads q, dO, k, v, lse and delta and writes dk, dv.
+    The backward kernels are timed again with the packed segment ids of
+    ``_segments`` (the train phase's kind of input; no library call
+    computes it). Their bound counts the products over the live pairs
+    of this run's ids only (k <= q and equal ids, about a fifth of the
+    causal pairs), plus the ids; the causal count stays beside it as
+    ``bound_causal_ms``."""
     import torch.nn.functional as F
     from dla_tpu_torch.ops import flash_attention as fa
     b, t, h, kh, d = SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD
@@ -594,21 +666,41 @@ def timing_sft(run, torch, dev, g):
         q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
             mk(b, t, h, d)
         out, lse = fa.flash_attention_forward(q, k, v)
+        seg = _segments(torch, dev, b, t, SEED)
+        out_p, lse_p = fa.flash_attention_forward(q, k, v, segment_ids=seg)
         sets.append(dict(q=q, k=k, v=v, do=do, out=out, lse=lse,
-                         delta=fa.delta_rowsum(out, do)))
+                         delta=fa.delta_rowsum(out, do), seg=seg,
+                         segs=fa._segments(q, k, seg, None), out_p=out_p,
+                         lse_p=lse_p, delta_p=fa.delta_rowsum(out_p, do)))
     mm = 2 * b * h * d * t * (t + 1) // 2          # one causal product
+    seg = sets[0]["seg"]                           # the same ids in both
+    live = (torch.tril(torch.ones(t, t, dtype=torch.bool, device=dev))
+            & (seg[:, :, None] == seg[:, None, :])).sum().item()
+    mm_p = 2 * h * d * live                        # one packed product
     qb, kvb, rowb = b * t * h * d * 2, b * t * kh * d * 2, b * h * t * 4
+    segb = 2 * b * t * 4                           # q and kv segment ids
     rows = {}
 
-    def bwd_args(s):
-        return (s["q"], s["k"], s["v"], s["do"], s["lse"], s["delta"],
-                None, None, None, None)
+    def dq_args(s, packed=False):
+        o, lse, segs = ((s["out_p"], s["lse_p"], s["segs"]) if packed
+                        else (s["out"], s["lse"], (None, None)))
+        return (s["q"], s["k"], s["v"], o, s["do"], lse, *segs, None, None)
+
+    def dkv_args(s, packed=False):
+        lse, delta, segs = ((s["lse_p"], s["delta_p"], s["segs"]) if packed
+                            else (s["lse"], s["delta"], (None, None)))
+        return (s["q"], s["k"], s["v"], s["do"], lse, delta, *segs, None,
+                None)
     t_fwd = _time_ms(torch, [lambda s=s: fa.flash_attention_forward(
         s["q"], s["k"], s["v"]) for s in sets * 4])
-    t_dq = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(*bwd_args(s))
+    t_dq = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(*dq_args(s))
                             for s in sets * 4])
-    t_dkv = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(*bwd_args(s))
+    t_dkv = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(*dkv_args(s))
                              for s in sets * 4])
+    t_dq_p = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(
+        *dq_args(s, True)) for s in sets * 4])
+    t_dkv_p = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(
+        *dkv_args(s, True)) for s in sets * 4])
     t_bwd = _time_ms(torch, [lambda s=s: fa.flash_attention_backward(
         s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
         for s in sets * 4])
@@ -617,6 +709,9 @@ def timing_sft(run, torch, dev, g):
     t_pb = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
         s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
         for s in sets], reps=3)
+    t_pb_p = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
+        s["q"], s["k"], s["v"], s["out_p"], s["lse_p"], s["do"],
+        segment_ids=s["seg"]) for s in sets], reps=3)
     # yardstick: SDPA in [B, H, T, D], forward and autograd backward
     lib = []
     for s in sets:
@@ -637,18 +732,28 @@ def timing_sft(run, torch, dev, g):
                    bound_ms(2 * qb + 2 * kvb + rowb, 2 * mm))),
         unit="one launch: one layer of an SFT micro-step, B4 T2048 H32 "
              "KH8 D64, causal")
+    dq_bytes, dkv_bytes = 4 * qb + 2 * kvb + 2 * rowb, \
+        2 * qb + 4 * kvb + 2 * rowb
     rows["dq"] = dict(
         ms=t_dq, plain_ms=t_pb, library_ms=t_lb,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(3 * qb + 2 * kvb + 2 * rowb, 3 * mm))),
-        unit="one launch at the SFT shape (plain and library compute dQ, "
-             "dK and dV together)")
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(dq_bytes, 3 * mm))),
+        unit="one launch at the SFT shape, delta included (plain and "
+             "library compute dQ, dK and dV together)")
     rows["dkv"] = dict(
         ms=t_dkv, plain_ms=t_pb, library_ms=t_lb,
-        **dict(zip(("bound_ms", "bound_by"),
-                   bound_ms(2 * qb + 4 * kvb + 2 * rowb, 4 * mm))),
+        **dict(zip(("bound_ms", "bound_by"), bound_ms(dkv_bytes, 4 * mm))),
         unit="one launch at the SFT shape (plain and library compute dQ, "
              "dK and dV together)")
+    for key, t_k, nbytes, n_mm in (("dq", t_dq_p, dq_bytes, 3),
+                                   ("dkv", t_dkv_p, dkv_bytes, 4)):
+        rows[key + "_packed"] = dict(
+            ms=t_k, plain_ms=t_pb_p, library_ms=None,
+            **dict(zip(("bound_ms", "bound_by"),
+                       bound_ms(nbytes + segb, n_mm * mm_p))),
+            bound_causal_ms=bound_ms(nbytes + segb, n_mm * mm)[0],
+            live_pair_share=live / (b * t * (t + 1) // 2),
+            unit="one launch at the SFT shape with packed segment ids "
+                 "(plain computes dQ, dK and dV together)")
     rows["backward_total_ms"] = t_bwd     # delta + dQ + dK/dV
     run.report["timing_sft"] = rows
     err = run.report.get("parity_max_err", {})
@@ -662,13 +767,18 @@ def timing_sft(run, torch, dev, g):
             replaces=f"dla_tpu/ops/flash_attention.py:{line}", launches=None,
             max_abs_err=err.get(name), ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
-            library_ms=r["library_ms"], unit=r["unit"])
+            library_ms=r["library_ms"], unit=r["unit"],
+            sft_packed=rows[key + "_packed"])
     for key, r in rows.items():
         if isinstance(r, dict):
+            lib_ms = ("none" if r["library_ms"] is None
+                      else f"{r['library_ms']:.4f}")
+            causal = ("" if "bound_causal_ms" not in r else
+                      f" (causal count {r['bound_causal_ms']:.4f}, live "
+                      f"pairs {r['live_pair_share']:.4f} of causal)")
             print(f"   SFT flash {key}: {r['ms']:.4f} ms vs bound "
-                  f"{r['bound_ms']:.4f} ({r['bound_by']}), library "
-                  f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}",
-                  flush=True)
+                  f"{r['bound_ms']:.4f} ({r['bound_by']}){causal}, library "
+                  f"{lib_ms}, plain {r['plain_ms']:.4f}", flush=True)
     print(f"   SFT flash backward (delta + dQ + dK/dV): {t_bwd:.4f} ms vs "
           f"SDPA backward {t_lb:.4f} ms", flush=True)
     del sets, lib

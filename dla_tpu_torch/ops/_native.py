@@ -42,16 +42,20 @@ _SIGNATURES = {
     # window, stream
     "dla_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                       ctypes.POINTER(ctypes.c_longlong), _F, _I, _P],
-    # q, k, v, dout, lse, delta, qseg, kseg, dq, B, H, KH, T, S, D,
-    # strides, scale, window, stream
-    "dla_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
-                         _I, _I, ctypes.POINTER(ctypes.c_longlong), _F, _I,
-                         _P],
+    # q, k, v, out, dout, lse, qseg, kseg, dq, delta (out), B, H, KH, T,
+    # S, D, strides, scale, window, stream
+    "dla_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
+                         _I, _I, _I, ctypes.POINTER(ctypes.c_longlong), _F,
+                         _I, _P],
     # q, k, v, dout, lse, delta, qseg, kseg, dk, dv, B, H, KH, T, S, D,
     # strides, scale, window, stream
     "dla_flash_bwd_dkv": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, ctypes.POINTER(ctypes.c_longlong),
                           _F, _I, _P],
+    # dkv (0: the dQ kernel), D -> dynamic shared memory bytes per block
+    "dla_flash_bwd_smem_bytes": [_I, _I],
+    # -> the least status of a failed tensor-map encode
+    "dla_map_error_base": [],
     # q, kc, vc, ks, vs, kn, vn, bias, ws, out, B, S, K, G, D, bound,
     # cache_int8, scale, softcap, out_bf16, stream
     "dla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
@@ -155,10 +159,18 @@ def library() -> ctypes.CDLL:
 
 
 def check(status: int, name: str) -> None:
-    """Raise on a non-zero cudaGetLastError() returned by a launch."""
-    if status != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
-                           f"{status}")
+    """Raise on a non-zero status returned by a launch function: a
+    cudaGetLastError() code, or a tensor-map encode failure (a status at
+    or above the library's ``dla_map_error_base()``: that base plus the
+    encode's CUresult)."""
+    if status == 0:
+        return
+    base = library().dla_map_error_base()
+    if status >= base:
+        raise RuntimeError(f"{name}: cuTensorMapEncodeTiled failed with "
+                           f"CUresult {status - base}")
+    raise RuntimeError(f"{name}: kernel launch failed with CUDA error "
+                       f"{status}")
 
 
 def stream_handle(device) -> int:

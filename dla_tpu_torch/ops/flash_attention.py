@@ -7,9 +7,11 @@ per-row log-sum-exp and the segment ids, and whose backward recomputes
 the probabilities from them (the JAX package's ``custom_vjp``).
 
 On the card the forward launches ``csrc/flash_fwd.cu`` and the backward
-the two kernels of ``csrc/flash_bwd.cu`` (dQ; dK/dV summed over each GQA
-group). The kernels read the public layout through strides, so no
-transpose copies are made. On CPU tensors the same wrappers compute
+the two kernels of ``csrc/flash_bwd.cu``: dQ, which also writes delta =
+rowsum(dO * O), then dK/dV summed over each GQA group, which reads it.
+The kernels read the public layout through strides (the backward's
+through TMA tensor maps built per call), so no transpose copies are
+made. On CPU tensors the same wrappers compute
 ``flash_forward_plain`` / ``flash_backward_plain``, the same functions
 with the Pallas kernels' casts: scores and dP in fp32 from operands in
 the input dtype, probabilities cast to v's dtype for the value product,
@@ -80,7 +82,7 @@ def flash_forward_plain(
 
 def delta_rowsum(out: torch.Tensor, dout: torch.Tensor) -> torch.Tensor:
     """rowsum(dO * O) in fp32, [B, H, T] (computed outside the Pallas
-    kernels in the JAX package too)."""
+    kernels in the JAX package; on the card the dQ kernel computes it)."""
     return (dout.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
 
 
@@ -220,8 +222,8 @@ def flash_attention_backward(
     window: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """(dq, dk, dv) from the forward's out and lse. CPU tensors take
-    ``flash_backward_plain``; CUDA tensors launch the dQ and the dK/dV
-    kernels or raise."""
+    ``flash_backward_plain``; CUDA tensors launch the dQ kernel (which
+    also produces delta) and then the dK/dV kernel, or raise."""
     if window is not None and window <= 0:
         raise ValueError(f"sliding window must be positive, got {window}")
     if q.device.type == "cpu":
@@ -231,55 +233,60 @@ def flash_attention_backward(
             window=window)
     if not _strided_ok(dout):       # autograd may hand over any layout
         dout = dout.contiguous()
-    if out.shape != q.shape:
-        raise ValueError("flash attention backward: out must match q")
     qseg, kseg = _segments(q, k, segment_ids, kv_segment_ids)
-    args = (q, k, v, dout, lse.contiguous(), delta_rowsum(out, dout), qseg,
-            kseg, softmax_scale, window)
-    return (launch_bwd_dq(*args),) + launch_bwd_dkv(*args)
+    lse = lse.contiguous()
+    dq, delta = launch_bwd_dq(q, k, v, out, dout, lse, qseg, kseg,
+                              softmax_scale, window)
+    return (dq,) + launch_bwd_dkv(q, k, v, dout, lse, delta, qseg, kseg,
+                                  softmax_scale, window)
 
 
-def _check_bwd(q, k, v, dout, lse, delta) -> None:
+def _check_bwd(q, k, v, dout, **rows: torch.Tensor) -> None:
     _check_inputs(q, k, v)
     _check_strides(q=q, k=k, v=v, dout=dout)
     b, t, h, _ = q.shape
     if dout.shape != q.shape or dout.dtype != q.dtype:
         raise ValueError("flash attention backward: dout must match q")
-    for name, x in (("lse", lse), ("delta", delta)):
+    for name, x in rows.items():
         if x.shape != (b, h, t) or x.dtype != torch.float32 \
                 or not x.is_contiguous() or x.device != q.device:
             raise ValueError(f"flash attention backward: {name} must be a "
                              "contiguous fp32 [B, H, T] on q's device")
 
 
-def launch_bwd_dq(q, k, v, dout, lse, delta, qseg, kseg,
+def launch_bwd_dq(q, k, v, out, dout, lse, qseg, kseg,
                   softmax_scale: Optional[float], window: Optional[int]
-                  ) -> torch.Tensor:
-    """The dQ kernel of ``flash_attention_backward`` on CUDA inputs
-    (delta = ``delta_rowsum(out, dout)``; int32 segment ids from
-    ``_segments`` or None): dq [B, T, H, D]."""
-    _check_bwd(q, k, v, dout, lse, delta)
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The dQ kernel of ``flash_attention_backward`` (int32 segment ids
+    from ``_segments`` or None): (dq [B, T, H, D], delta [B, H, T] fp32),
+    delta = rowsum(dout * out) for ``launch_bwd_dkv``, on CUDA inputs."""
+    _check_bwd(q, k, v, dout, lse=lse)
+    _check_strides(out=out)
+    if out.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError("flash attention backward: out must match q")
     b, t, h, d = q.shape
     _, s, kh, _ = k.shape
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
     dq = torch.empty((b, t, h, d), dtype=q.dtype, device=q.device)
+    delta = torch.empty((b, h, t), dtype=torch.float32, device=q.device)
     status = _native.library().dla_flash_bwd_dq(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), _ptr(qseg), _ptr(kseg),
-        dq.data_ptr(), b, h, kh, t, s, d, _strides(q, k, v, dout, dq),
-        float(scale), int(window or 0), _native.stream_handle(q.device))
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), _ptr(qseg), _ptr(kseg),
+        dq.data_ptr(), delta.data_ptr(), b, h, kh, t, s, d,
+        _strides(q, k, v, out, dout, dq), float(scale), int(window or 0),
+        _native.stream_handle(q.device))
     _native.check(status, NAME_DQ)
     _native.LAUNCHES[NAME_DQ] += 1
-    return dq
+    return dq, delta
 
 
 def launch_bwd_dkv(q, k, v, dout, lse, delta, qseg, kseg,
                    softmax_scale: Optional[float], window: Optional[int]
                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The dK/dV kernel of ``flash_attention_backward`` on CUDA inputs
-    (as ``launch_bwd_dq``): (dk, dv) [B, S, KH, D], summed over each GQA
-    group."""
-    _check_bwd(q, k, v, dout, lse, delta)
+    """The dK/dV kernel of ``flash_attention_backward`` on CUDA inputs,
+    after ``launch_bwd_dq`` on the same stream (its delta): (dk, dv)
+    [B, S, KH, D], summed over each GQA group."""
+    _check_bwd(q, k, v, dout, lse=lse, delta=delta)
     b, t, h, d = q.shape
     _, s, kh, _ = k.shape
     scale = softmax_scale if softmax_scale is not None else d ** -0.5

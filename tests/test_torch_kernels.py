@@ -17,6 +17,8 @@ from dla_tpu.ops.flash_attention import flash_causal_attention as j_flash
 from dla_tpu.ops.quant_matmul import int8_matmul as j_int8_matmul
 from dla_tpu_torch.ops.decode_kernel import flash_decode_attention
 from dla_tpu_torch.ops.flash_attention import (
+    delta_rowsum,
+    flash_attention_backward,
     flash_attention_forward,
     flash_backward_plain,
     flash_causal_attention,
@@ -112,6 +114,12 @@ BWD_TOL = {"float32": 1e-4, "bfloat16": 3e-2}
     dict(b=1, t=48, h=2, kh=2, bq=16, bk=8, window=10),      # window
     dict(b=2, t=32, h=4, kh=1, bq=16, bk=16, segments=True),  # packing
     dict(b=2, t=40, h=4, kh=2, bq=8, bk=8, segments=True),    # ragged T
+    # the CUDA kernels' head dims at blocks of 64 (below 128 the Pallas
+    # wrapper takes only blocks that divide T), and D=128 over 3 blocks
+    dict(b=2, t=64, h=4, kh=2, bq=64, bk=64, d=64, segments=True),
+    dict(b=1, t=64, h=4, kh=1, bq=64, bk=64, d=96, window=20),
+    dict(b=1, t=64, h=2, kh=2, bq=64, bk=64, d=128),
+    dict(b=2, t=48, h=4, kh=2, bq=16, bk=16, d=128, segments=True),
 ])
 def test_flash_backward_plain_matches_pallas(case, dtype):
     """dQ, dK, dV of ``flash_backward_plain`` (what the autograd Function
@@ -120,7 +128,8 @@ def test_flash_backward_plain_matches_pallas(case, dtype):
     cotangent."""
     import jax
     rs = np.random.RandomState(6)
-    b, t, h, kh, d = case["b"], case["t"], case["h"], case["kh"], 16
+    b, t, h, kh = case["b"], case["t"], case["h"], case["kh"]
+    d = case.get("d", 16)
     q, qt = _pair(rs.randn(b, t, h, d), dtype)
     k, kt = _pair(rs.randn(b, t, kh, d), dtype)
     v, vt = _pair(rs.randn(b, t, kh, d), dtype)
@@ -180,6 +189,55 @@ def test_flash_autograd_matches_autograd_of_plain_forward(case):
     for a, r in zip(got, want):
         np.testing.assert_allclose(a.numpy(), r.numpy(), atol=1e-5,
                                    rtol=1e-5)
+
+
+def test_flash_backward_dq_interface_on_cpu():
+    """On CPU tensors ``flash_attention_backward`` is
+    ``flash_backward_plain``, and ``delta_rowsum`` (the plain version of
+    the delta the dQ kernel writes on the card for the dK/dV kernel) is
+    rowsum(dout * out) as a [B, H, T] fp32 tensor."""
+    rs = np.random.RandomState(8)
+    b, t, h, kh, d = 2, 20, 4, 2, 8
+    mk = lambda *s: torch.from_numpy(rs.randn(*s).astype(np.float32))
+    q, k, v, g = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
+        mk(b, t, h, d)
+    seg = torch.ones((b, t), dtype=torch.int32)
+    seg[:, 12:] = 2
+    out, lse = flash_attention_forward(q, k, v, segment_ids=seg, window=9)
+    kw = dict(segment_ids=seg, window=9)
+    got = flash_attention_backward(q, k, v, out, lse, g, **kw)
+    want = flash_backward_plain(q, k, v, out, lse, g, **kw)
+    for a, r in zip(got, want):
+        assert torch.equal(a, r)
+    delta = delta_rowsum(out, g)
+    assert delta.shape == (b, h, t) and delta.dtype == torch.float32
+    np.testing.assert_allclose(
+        delta.numpy(), np.einsum("bthd,bthd->bht", out.numpy(), g.numpy()),
+        atol=1e-5)
+
+
+def _code_of(path) -> str:
+    """A CUDA source without its comments."""
+    import re
+    text = path.read_text()
+    text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+    return re.sub(r"//[^\n]*", "", text)
+
+
+def test_flash_backward_kernels_use_no_atomics():
+    """The backward kernels own each output tile in one block and sum in a
+    fixed order, so gradients are bit-identical from run to run (the
+    resume check of chip_smoke.py's train phase relies on it): no atomic
+    or reduction instruction in the source or the header it includes."""
+    import re
+    from pathlib import Path
+    csrc = Path(__file__).resolve().parents[1] / "dla_tpu_torch" / "csrc"
+    for name in ("flash_bwd.cu", "hopper.cuh"):
+        code = _code_of(csrc / name)
+        assert "flash_bwd_dq_kernel" in code or name != "flash_bwd.cu"
+        found = re.findall(r"\batomic\w*|\batom\.\w*|\bred\.\w*|"
+                           r"cp\.reduce\.\w*", code)
+        assert not found, (name, found)
 
 
 # ------------------------------------------------------- decode attention

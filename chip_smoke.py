@@ -8,15 +8,20 @@ every fault, and the result lines are printed only when all passed):
 
 1. build   — compile the CUDA kernels from ``dla_tpu_torch/csrc`` (nvcc,
              sm_90a, one process per source) and print the build time,
-             ptxas resource usage, a summary line per flash-backward
-             kernel (registers, spills, dynamic shared memory) and, where
-             ``cuobjdump`` exists, the HGMMA (wgmma) count of each
-             kernel's SASS;
+             ptxas resource usage, a summary line per wgmma kernel (flash
+             forward, dQ, dK/dV, the int8 matmul's TMA kernel: registers,
+             spills, dynamic shared memory) and, where ``cuobjdump``
+             exists, the HGMMA (wgmma) count of each kernel's SASS; fails
+             on a ptxas "Potential Performance Loss" (C75xx: wgmma
+             serialized) warning or a wgmma kernel with no HGMMA;
 2. parity  — hold each kernel against its plain PyTorch version on the
              card at the paths' shapes: flash forward at T=128 (rollout),
-             decode attention over an int8 cache of S=384 with the fill
-             mid-chunk and NaN past it, the int8 matmul at M=64 and M=8192
-             for every projection and lm_head; the flash backward (dQ,
+             at the SFT shape with packed segment ids, at ragged T with
+             segments and a window (head dims 64 and 96), decode attention
+             over an int8 cache of S=384 with the fill mid-chunk and NaN
+             past it, the int8 matmul at M=64 (split-K kernel) and M=8192
+             (TMA kernel) for every projection and lm_head and at ragged
+             shapes (M 8190, K 4104, N 1040); the flash backward (dQ,
              dK/dV) at the SFT shape with packed segments, with a window,
              at ragged T=77, at head_dim 128 and at head_dim 96 (packed
              segments and a window), and the
@@ -25,9 +30,11 @@ every fault, and the result lines are printed only when all passed):
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
-             flash forward, dQ and dK/dV also at the SFT shape, the
-             backward kernels also with packed segment ids (bound from
-             the live pairs of those ids);
+             int8 matmul's prefill shapes also through the first port's
+             split-K kernel (same run); the flash forward, dQ and dK/dV
+             also at the SFT shape, and with packed segment ids (bound
+             from the live pairs of those ids; yardstick: SDPA given the
+             block-diagonal causal mask, its backend named);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -59,6 +66,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -152,8 +160,15 @@ def main() -> int:
             if ("registers" in line or "spill" in line or "warning" in line
                     or "Performance" in line or line.startswith("==")):
                 print("   " + line.strip())
-        run.report["flash_bwd_build"] = flash_bwd_build_summary(
+        run.report["kernel_build"] = kernel_build_summary(
             log, path, _native)
+        slow = [line.strip() for line in log.splitlines()
+                if "Potential Performance Loss" in line
+                or re.search(r"\bC75\d\d\b", line)]
+        run.check(not slow, f"no ptxas wgmma serialization warning {slow}")
+        counted = [r["hgmma"] for r in run.report["kernel_build"].values()]
+        run.check(all(c == "no cuobjdump" or (c or 0) > 0 for c in counted),
+                  f"every wgmma kernel has HGMMA in its SASS {counted}")
 
     with run.phase("parity"):
         parity(run, torch, dev)
@@ -193,12 +208,25 @@ def main() -> int:
     return 0
 
 
-def flash_bwd_build_summary(log: str, lib_path: Path, native):
-    """Per flash-backward kernel instantiation: ptxas registers and spill
-    bytes (from the build log), dynamic shared memory per block (asked of
-    the library) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
+# the wgmma kernels: mangled-name pattern (name[, template argument]) ->
+# its dynamic shared memory per block, asked of the library
+WGMMA_KERNELS = (
+    (r"(flash_bwd_dq_kernel)ILi(\d+)E",
+     lambda lib, d: lib.dla_flash_bwd_smem_bytes(0, d)),
+    (r"(flash_bwd_dkv_kernel)ILi(\d+)E",
+     lambda lib, d: lib.dla_flash_bwd_smem_bytes(1, d)),
+    (r"(flash_fwd_kernel)ILi(\d+)E",
+     lambda lib, d: lib.dla_flash_fwd_smem_bytes(d)),
+    (r"(int8_mm_tma_kernel)E",
+     lambda lib: lib.dla_int8_matmul_smem_bytes()),
+)
+
+
+def kernel_build_summary(log: str, lib_path: Path, native):
+    """Per wgmma kernel instantiation: ptxas registers and spill bytes
+    (from the build log), dynamic shared memory per block (asked of the
+    library) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
     instructions in its SASS. Printed one line each."""
-    import re
     import shutil
     stats, cur = {}, None
     for line in log.splitlines():
@@ -229,14 +257,18 @@ def flash_bwd_build_summary(log: str, lib_path: Path, native):
     lib = native.library()
     out = {}
     for mangled, st in sorted(stats.items()):
-        m = re.search(r"(flash_bwd_(?:dq|dkv)_kernel)ILi(\d+)E", mangled)
-        if not m:
+        for pattern, smem_of in WGMMA_KERNELS:
+            m = re.search(pattern, mangled)
+            if m:
+                break
+        else:
             continue
-        name = f"{m[1]}<{m[2]}>"
-        smem = lib.dla_flash_bwd_smem_bytes(int("dkv" in m[1]), int(m[2]))
+        args = [int(a) for a in m.groups()[1:]]
+        name = m[1] + "".join(f"<{a}>" for a in args)
+        smem = smem_of(lib, *args)
         row = dict(registers=st.get("registers"), spill_bytes=st.get("spill"),
                    dynamic_smem_bytes=smem,
-                   hgmma=hgmma.get(mangled) if hgmma else "no cuobjdump")
+                   hgmma=hgmma.get(mangled, 0) if hgmma else "no cuobjdump")
         out[name] = row
         print(f"   ptxas {name}: {row['registers']} registers, spill "
               f"stores/loads {row['spill_bytes']} bytes, {smem} bytes of "
@@ -295,6 +327,22 @@ def _int8_inputs(torch, dev, g, m, k, n):
     return x, w, sc
 
 
+def _int8_splitk(torch, native, x, w, sc):
+    """The first port's int8 kernel (mma.sync, 64 x 64 tiles, one K
+    split), which the planner keeps for M < 128, called at any M: at the
+    prefill shapes, the prefill kernel the port had before the TMA one.
+    No launch is counted."""
+    m, k = x.shape
+    n = w.shape[1]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
+    unused = torch.empty((1,), dtype=torch.float32, device=x.device)
+    native.check(native.library().dla_int8_matmul(
+        x.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(),
+        unused.data_ptr(), m, n, k, 1, native.stream_handle(x.device)),
+        "int8_matmul split-K kernel")
+    return out
+
+
 def _call_decode(fn, inp):
     return fn(inp["q"], inp["k_cache"], inp["v_cache"], inp["k_new"],
               inp["v_new"], bias=inp["bias"], k_scale=inp["k_scale"],
@@ -304,6 +352,7 @@ def _call_decode(fn, inp):
 # ------------------------------------------------------------------ parity
 
 def parity(run, torch, dev):
+    from dla_tpu_torch.ops import _native
     from dla_tpu_torch.ops import decode_kernel as dk
     from dla_tpu_torch.ops import flash_attention as fa
     from dla_tpu_torch.ops import quant_matmul as qm
@@ -319,6 +368,11 @@ def parity(run, torch, dev):
                   {}))
     cases.append(("phi3-mini head_dim 96, T130", dict(b=2, t=130, h=4,
                                                        kh=4, d=96), {}))
+    cases.append(("SFT shape B4 T2048 H32 KH8 D64, packed segments",
+                  dict(b=SFT_B, t=SFT_T, h=SFT_H, kh=SFT_KH, d=SFT_HD),
+                  "packed"))
+    cases.append(("head_dim 96, ragged T300 GQA, packed segments, window "
+                  "50", dict(b=2, t=300, h=8, kh=2, d=96), "packed+win"))
     for label, shape, extra in cases:
         q, k, v = _flash_inputs(torch, dev, g, **shape)
         kw = {}
@@ -328,6 +382,11 @@ def parity(run, torch, dev):
             seg[:, 40:] = 2
             seg[:, 90:] = 0
             kw = dict(segment_ids=seg, window=24)
+        if extra in ("packed", "packed+win"):
+            kw = dict(segment_ids=_segments(torch, dev, q.shape[0],
+                                            q.shape[1], SEED))
+        if extra == "packed+win":
+            kw["window"] = 50
         out, lse = fa.flash_attention_forward(q, k, v, **kw)
         ref, ref_lse = fa.flash_forward_plain(q, k, v, **kw)
         torch.cuda.synchronize()
@@ -373,10 +432,12 @@ def parity(run, torch, dev):
     # int8 matmul: one bf16 rounding of fp32 sums in another order -> at
     # most ~1 bf16 ulp: max|err| <= 1e-2 * max|ref|
     worst = 0.0   # max absolute error over the path's shapes
+    sms = _native.sm_count(dev)
     shapes = [(64, k, n) for (k, n) in PROJ.values()] + [(64, HID, VOCAB)]
     shapes += [(B * PROMPT, k, n) for (k, n) in PROJ.values()]
     path_shapes = set(shapes)
-    shapes += [(130, HID, 4096), (5, 256, 48)]   # ragged M and N
+    shapes += [(130, HID, 4096), (5, 256, 48),   # ragged M and N
+               (8190, 4104, 1040), (129, 72, 272)]   # ragged M, K and N
     for m, k, n in dict.fromkeys(shapes):
         x, w, sc = _int8_inputs(torch, dev, g, m, k, n)
         out = qm.int8_matmul(x, w, sc)
@@ -384,8 +445,9 @@ def parity(run, torch, dev):
         torch.cuda.synchronize()
         e = (out.float() - ref.float()).abs().max().item()
         tol = 1e-2 * ref.float().abs().max().item()
-        run.check(e <= tol, f"int8_matmul M{m} K{k} N{n}: max|err| {e:.3g} "
-                  f"<= {tol:.3g}")
+        p = qm.plan(m, n, k, sms)
+        run.check(e <= tol, f"int8_matmul M{m} K{k} N{n} ({p.path}, "
+                  f"{p.splits} splits): max|err| {e:.3g} <= {tol:.3g}")
         if (m, k, n) in path_shapes:
             worst = max(worst, e)
         del x, w, sc, out, ref
@@ -504,6 +566,7 @@ def _copies(nbytes: int, most: int = 8) -> int:
 
 def timing(run, torch, dev):
     import torch.nn.functional as F
+    from dla_tpu_torch.ops import _native
     from dla_tpu_torch.ops import decode_kernel as dk
     from dla_tpu_torch.ops import flash_attention as fa
     from dla_tpu_torch.ops import quant_matmul as qm
@@ -600,15 +663,22 @@ def timing(run, torch, dev):
                    for s in sets]
             t_l = _time_ms(torch, [lambda s=s: torch.matmul(*s)
                                    for s in deq * 2])
-            measured[key] = (t_k, t_p, t_l, nbytes, flops)
+            # the first port's kernel at this shape, for the same-run
+            # comparison (at M = 64 it is the kernel the path runs)
+            t_1 = t_k if m < 128 else _time_ms(
+                torch, [lambda s=s: _int8_splitk(torch, _native, *s)
+                        for s in sets * 2])
+            measured[key] = (t_k, t_p, t_l, t_1, nbytes, flops)
             del sets, deq
-        t_k, t_p, t_l, nbytes, flops = measured[key]
+        t_k, t_p, t_l, t_1, nbytes, flops = measured[key]
         bms, by = bound_ms(nbytes, flops)
         per_shape.append(dict(proj=name, M=m, K=k, N=n, ms=t_k, plain_ms=t_p,
-                              library_ms=t_l, bound_ms=bms, bound_by=by))
+                              library_ms=t_l, bound_ms=bms, bound_by=by,
+                              splitk_kernel_ms=t_1))
         print(f"   int8_matmul {name:7s} M{m:5d} K{k:5d} N{n:6d}: "
               f"{t_k:.4f} ms (bound {bms:.4f} {by}, torch.matmul "
-              f"{t_l:.4f}, plain {t_p:.4f})", flush=True)
+              f"{t_l:.4f}, plain {t_p:.4f}, split-K kernel {t_1:.4f})",
+              flush=True)
 
     def total(rows, field):
         return sum(r[field] * (1 if r["proj"] == "lm_head" else LAYERS)
@@ -633,7 +703,12 @@ def timing(run, torch, dev):
     run.report["int8_matmul_shapes"] = per_shape
     run.report["int8_matmul_prefill"] = {
         f: total(pre, f) for f in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms")}
+                                   "bound_ms", "splitk_kernel_ms")}
+    run.kernels["int8_matmul"]["prefill"] = dict(
+        run.report["int8_matmul_prefill"],
+        unit="one prefill: 7 projections x 32 layers at M=8192 (TMA "
+             "kernel) + lm_head at M=64; splitk_kernel_ms: the first "
+             "port's kernel at the same shapes")
     run.report["timing_work"] = timings
     for kname, kv in run.kernels.items():
         print(f"   {kname}: {kv['ms']:.4f} ms vs bound {kv['bound_ms']:.4f} "
@@ -651,12 +726,13 @@ def timing_sft(run, torch, dev, g):
     forward does 2, dQ 3 (S, dP, dS K) and dK/dV 4 (S, dP, P^T dO,
     dS^T Q). dQ reads q, dO, O (for delta), k, v and lse and writes dq
     and delta; dK/dV reads q, dO, k, v, lse and delta and writes dk, dv.
-    The backward kernels are timed again with the packed segment ids of
-    ``_segments`` (the train phase's kind of input; no library call
-    computes it). Their bound counts the products over the live pairs
-    of this run's ids only (k <= q and equal ids, about a fifth of the
-    causal pairs), plus the ids; the causal count stays beside it as
-    ``bound_causal_ms``."""
+    All three are timed again with the packed segment ids of
+    ``_segments`` (the train phase's kind of input), against SDPA given
+    the block-diagonal causal boolean mask [B, 1, T, T] (the same
+    function; the profiler names the backend that served it). Their
+    bound counts the products over the live pairs of this run's ids
+    only (k <= q and equal ids, about a fifth of the causal pairs), plus
+    the ids; the causal count stays beside it as ``bound_causal_ms``."""
     import torch.nn.functional as F
     from dla_tpu_torch.ops import flash_attention as fa
     b, t, h, kh, d = SFT_B, SFT_T, SFT_H, SFT_KH, SFT_HD
@@ -712,6 +788,11 @@ def timing_sft(run, torch, dev, g):
     t_pb_p = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
         s["q"], s["k"], s["v"], s["out_p"], s["lse_p"], s["do"],
         segment_ids=s["seg"]) for s in sets], reps=3)
+    t_fwd_p = _time_ms(torch, [lambda s=s: fa.flash_attention_forward(
+        s["q"], s["k"], s["v"], segment_ids=s["seg"]) for s in sets * 4])
+    t_pf_p = _time_ms(torch, [lambda s=s: fa.flash_forward_plain(
+        s["q"], s["k"], s["v"], segment_ids=s["seg"]) for s in sets],
+        reps=3)
     # yardstick: SDPA in [B, H, T, D], forward and autograd backward
     lib = []
     for s in sets:
@@ -726,12 +807,46 @@ def timing_sft(run, torch, dev, g):
             for s in lib * 4])
     t_lb = _time_ms(torch, [lambda s=s: torch.autograd.grad(
         s[3], s[:3], s[4], retain_graph=True) for s in lib * 4])
+    # the same function with packed ids: SDPA given the block-diagonal
+    # causal mask [B, 1, T, T] (bool), forward and autograd backward
+    mask = (torch.tril(torch.ones(t, t, dtype=torch.bool, device=dev))
+            & (seg[:, :, None] == seg[:, None, :]))[:, None]
+    lib_p = []
+    for s in sets:
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (s["q"], s["k"], s["v"]))
+        o = F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                           enable_gqa=True)
+        lib_p.append((qs, ks, vs, o, s["do"].transpose(1, 2).contiguous()))
+
+    def sdpa_fwd_p(s):
+        with torch.no_grad():
+            return F.scaled_dot_product_attention(
+                s[0], s[1], s[2], attn_mask=mask, enable_gqa=True)
+    t_lf_p = _time_ms(torch, [lambda s=s: sdpa_fwd_p(s) for s in lib_p * 4])
+    t_lb_p = _time_ms(torch, [lambda s=s: torch.autograd.grad(
+        s[3], s[:3], s[4], retain_graph=True) for s in lib_p * 4])
+    backend_f = _top_kernel(torch, lambda: sdpa_fwd_p(lib_p[0]))
+    backend_b = _top_kernel(torch, lambda: torch.autograd.grad(
+        lib_p[0][3], lib_p[0][:3], lib_p[0][4], retain_graph=True))
+    print(f"   SDPA with the packed mask ran {backend_f} (forward), "
+          f"{backend_b} (backward)", flush=True)
     rows["fwd"] = dict(
         ms=t_fwd, plain_ms=t_pf, library_ms=t_lf,
         **dict(zip(("bound_ms", "bound_by"),
                    bound_ms(2 * qb + 2 * kvb + rowb, 2 * mm))),
         unit="one launch: one layer of an SFT micro-step, B4 T2048 H32 "
              "KH8 D64, causal")
+    fwd_bytes = 2 * qb + 2 * kvb + rowb
+    rows["fwd_packed"] = dict(
+        ms=t_fwd_p, plain_ms=t_pf_p, library_ms=t_lf_p,
+        library=f"SDPA, block-diagonal causal bool mask: {backend_f}",
+        **dict(zip(("bound_ms", "bound_by"),
+                   bound_ms(fwd_bytes + segb, 2 * mm_p))),
+        bound_causal_ms=bound_ms(fwd_bytes + segb, 2 * mm)[0],
+        live_pair_share=live / (b * t * (t + 1) // 2),
+        unit="one launch at the SFT shape with packed segment ids (the "
+             "train path's input)")
     dq_bytes, dkv_bytes = 4 * qb + 2 * kvb + 2 * rowb, \
         2 * qb + 4 * kvb + 2 * rowb
     rows["dq"] = dict(
@@ -747,7 +862,9 @@ def timing_sft(run, torch, dev, g):
     for key, t_k, nbytes, n_mm in (("dq", t_dq_p, dq_bytes, 3),
                                    ("dkv", t_dkv_p, dkv_bytes, 4)):
         rows[key + "_packed"] = dict(
-            ms=t_k, plain_ms=t_pb_p, library_ms=None,
+            ms=t_k, plain_ms=t_pb_p, library_ms=t_lb_p,
+            library=f"SDPA backward, block-diagonal causal bool mask "
+                    f"(dQ, dK and dV together): {backend_b}",
             **dict(zip(("bound_ms", "bound_by"),
                        bound_ms(nbytes + segb, n_mm * mm_p))),
             bound_causal_ms=bound_ms(nbytes + segb, n_mm * mm)[0],
@@ -759,6 +876,7 @@ def timing_sft(run, torch, dev, g):
     err = run.report.get("parity_max_err", {})
     fwd = run.kernels["flash_attention_fwd"]
     fwd["sft_shape"] = rows["fwd"]
+    fwd["sft_packed"] = rows["fwd_packed"]
     for key, name, line in (("dq", "flash_attention_bwd_dq", 398),
                             ("dkv", "flash_attention_bwd_dkv", 438)):
         r = rows[key]
@@ -781,8 +899,24 @@ def timing_sft(run, torch, dev, g):
                   f"{lib_ms}, plain {r['plain_ms']:.4f}", flush=True)
     print(f"   SFT flash backward (delta + dQ + dK/dV): {t_bwd:.4f} ms vs "
           f"SDPA backward {t_lb:.4f} ms", flush=True)
-    del sets, lib
+    del sets, lib, lib_p, mask
     torch.cuda.empty_cache()
+
+
+def _top_kernel(torch, fn) -> str:
+    """The CUDA kernel that took the most device time in one call of
+    ``fn`` (which SDPA backend served it), from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    per_name, _ = _device_ms(prof, 1)
+    if not per_name:
+        return "not measured"
+    return max(per_name.items(), key=lambda kv: kv[1])[0][:100]
 
 
 # ------------------------------------------------------------------- slice
@@ -945,7 +1079,8 @@ def slice_run(run, torch, dev, native):
                    slice_rep["decode_ms_per_step"])
 
 
-OUR_KERNELS = ("int8_mm_kernel", "int8_mm_finalize", "flash_fwd_kernel",
+OUR_KERNELS = ("int8_mm_kernel", "int8_mm_finalize", "int8_mm_tma_kernel",
+               "flash_fwd_kernel",
                "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                "decode_chunk_kernel", "decode_merge_kernel")
 

@@ -10,7 +10,9 @@
 // is two such boxes side by side ("subtiles", each rows x 128 bytes);
 // a head dim of 96 is read as 128 through a 96-column tensor map, so TMA
 // zero-fills columns 96..127 and products over them add exact zeros.
-// Every subtile starts on a 1024-byte boundary.
+// Every subtile starts on a 1024-byte boundary. An int8 box of 128
+// columns (the int8 matmul's weights) has the same 128-byte rows and
+// swizzle; ldmatrix reads it as 16-bit pairs.
 //
 // Descriptors (desc_sw128). wgmma reads B (and A, from shared memory)
 // through a 64-bit descriptor: start address, leading and stride byte
@@ -34,9 +36,10 @@
 // {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
 // {d[8kk+6], d[8kk+7]}, each pair rounded to bf16x2.
 //
-// Host side: make_tile_map() encodes a CUtensorMap with
-// cuTensorMapEncodeTiled, found through cudaGetDriverEntryPoint(ByVersion)
-// so the library links no -lcuda. A map travels to the kernel by value as a
+// Host side: make_tile_map() (4-d head views) and make_matrix_map()
+// (2-d matrices) encode a CUtensorMap with cuTensorMapEncodeTiled,
+// found through cudaGetDriverEntryPoint(ByVersion) so the library links
+// no -lcuda. A map travels to the kernel by value as a
 // `const __grid_constant__ CUtensorMap` parameter.
 #pragma once
 
@@ -113,6 +116,16 @@ __device__ __forceinline__ void tma_load_4d(uint32_t dst, const CUtensorMap* map
       : "memory");
 }
 
+// box at (c0, c1) (innermost first) of a 2-d map
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const CUtensorMap* map,
+                                            uint32_t bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1)
+      : "memory");
+}
+
 // 4 bytes global -> shared without waiting (cp.async); cp_async_arrive
 // makes a barrier's phase also wait for every cp.async this thread
 // issued before it
@@ -131,6 +144,18 @@ __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(
                    reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// four 8 x 8 matrices of 16-bit elements from shared memory, transposed:
+// lanes 8 j .. 8 j + 7 give the row addresses of matrix j, and r[j] holds
+// elements (2 (lane % 4), lane / 4) and (2 (lane % 4) + 1, lane / 4) of it
+__device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
 
 // ---------------------------------------------------------------- wgmma
@@ -192,6 +217,28 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(da), "l"(db), "r"(scale_d));
+}
+
+// the same at N = 128
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                              uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(da), "l"(db), "r"(scale_d));
 }
 
@@ -288,35 +335,61 @@ inline EncodeTiledFn encode_tiled() {
 // kMapError as dla_map_error_base() for the Python side).
 constexpr int kMapError = 10000;
 
-// Map of a bf16 [B, rows, heads, cols] view with element strides (b, h,
-// t) and a contiguous last dim, read in boxes of [box_rows, 64 columns]
-// of one (batch, head), 128-byte swizzled; rows past `rows` and columns
-// past `cols` read as zeros.
+// Encode a map of a `rank`-d tensor, read in 128-byte-swizzled boxes:
+// dims and box innermost first, byte strides of dims 1.. (multiples of
+// 16), 128-byte box rows. Boxes past the tensor's edge read as zeros.
 // cuTensorMapEncodeTiled needs the device's context current on
 // the calling thread, which a thread that has made no runtime call yet
-// (PyTorch's autograd worker, say) lacks: make_tile_map binds it first.
-inline int make_tile_map(CUtensorMap* map, const void* ptr, int cols,
-                         int heads, int rows, int batch, long long sb,
-                         long long sh, long long st, int box_rows) {
+// (PyTorch's autograd worker, say) lacks: encode_map binds it first.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                      const void* ptr, const cuuint64_t* dims,
+                      const cuuint64_t* strides, const cuuint32_t* box) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
   int device = 0;
   if (cudaGetDevice(&device) != cudaSuccess ||
       cudaSetDevice(device) != cudaSuccess)
     return kMapError + (int)CUDA_ERROR_INVALID_CONTEXT;
-  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
-                              (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
-                                 (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                        const_cast<void*>(ptr), dims, strides, box, elem,
+  const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
+                        dims, strides, box, elem,
                         CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
+}
+
+// Map of a bf16 [B, rows, heads, cols] view with element strides (b, h,
+// t) and a contiguous last dim, read in boxes of [box_rows, 64 columns]
+// of one (batch, head), 128-byte swizzled; rows past `rows` and columns
+// past `cols` read as zeros.
+inline int make_tile_map(CUtensorMap* map, const void* ptr, int cols,
+                         int heads, int rows, int batch, long long sb,
+                         long long sh, long long st, int box_rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)cols, (cuuint64_t)heads,
+                              (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)st * 2,
+                                 (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)box_rows, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, ptr, dims,
+                    strides, box);
+}
+
+// Map of a row-major [rows, cols] matrix of `elem_bytes`-byte elements
+// (2: bf16, 1: int8; row pitch cols * elem_bytes, a multiple of 16),
+// read in boxes of [box_rows, box_cols] with 128-byte rows (64 bf16 or
+// 128 int8 columns), 128-byte swizzled.
+inline int make_matrix_map(CUtensorMap* map, const void* ptr, int rows,
+                           int cols, int elem_bytes, int box_rows,
+                           int box_cols) {
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+  return encode_map(map,
+                    elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                    : CU_TENSOR_MAP_DATA_TYPE_UINT8,
+                    2, ptr, dims, strides, box);
 }
 
 }  // namespace hopper

@@ -9,21 +9,46 @@
 // HBM bound it (3.35 TB/s). At prefill (M = 8192) it is bound by tensor
 // core operations.
 //
-// Design: one block per (64-row M tile, 64-column N tile, K split),
-// looping over K in 64-deep tiles — the TPU kernel never blocked K only
-// because its whole K strip fit VMEM. Each K tile of w is read from HBM
-// once per M tile (at decode: once), as 16-byte vector loads into
-// registers one tile ahead of the compute (register double buffering),
-// converted int8 -> bf16 (exact: |w| <= 127) on its way into shared
-// memory, and multiplied with mma.sync bf16 tensor-core products into
-// fp32 accumulators; the per-channel fp32 scale multiplies the fp32
-// product before the single bf16 rounding. When M and N give too few
-// tiles to occupy the card (decode projections), K is split across
-// blocks: each split writes an fp32 partial and a second small kernel
-// sums the splits in a fixed order (deterministic), scales and rounds.
-// Not yet: cp.async/TMA pipelines and wgmma, which the compute-bound
-// prefill shapes need to approach the tensor-core peak.
+// Two kernels; the wrapper (ops/quant_matmul.py `plan`) picks one from
+// (M, N, K):
+//
+// int8_mm_tma_kernel (M >= 128, prefill). Hopper design (hopper.cuh):
+//  - One block per 128 x 256 output tile, output tiles walked in groups
+//    of 8 M tiles so that the blocks on the card at one time share their
+//    x and w tiles in L2.
+//  - 3 warpgroups. A producer warp keeps a 6-stage ring of {x tile
+//    [128, 64] bf16; w tile [64, 256] int8 as two boxes of 128 columns}, both
+//    128-byte swizzled, full by TMA (x and w rows are 16-byte multiples:
+//    the wrapper's K % 8 and N % 16 checks), full / empty mbarriers.
+//    Ragged M, N and K read as zeros.
+//  - The product is computed transposed, out^T = w^T x^T, so that w is
+//    the wgmma's register operand: each consumer warpgroup owns 128
+//    output columns and converts only its own w columns, straight into
+//    bf16 A fragments — no converted tile in shared memory, no barrier
+//    between the warpgroups. A transposed ldmatrix of 16-bit pairs gives
+//    each thread the k pairs of two neighbouring columns; the conversion
+//    is exact (|w| <= 127; the magic-number route, 2^23 + byte as an
+//    fp32 bit pattern, minus 2^23 + 128, upper half taken). B is the x
+//    tile, K-major: RS wgmma m64n128k16. A consumer converts the next
+//    stage's fragments while its products of this stage run.
+//  - fp32 accumulators; the epilogue multiplies by scale[n] and rounds
+//    once to bf16 — the casts of int8_matmul_plain. No atomics: one
+//    thread owns each output and sums K in a fixed order.
+//
+// int8_mm_kernel (M < 128, decode), the first version of the port: one
+// block per (64-row M tile, 64-column N tile, K split), looping over K
+// in 64-deep tiles. Each K tile of w is read from HBM once per M tile
+// (at decode: once), as 16-byte vector loads into registers one tile
+// ahead of the compute, converted int8 -> bf16 on its way into shared
+// memory, and multiplied with mma.sync bf16 products into fp32
+// accumulators; the per-channel fp32 scale multiplies the fp32 product
+// before the single bf16 rounding. When M and N give too few tiles to
+// occupy the card (decode projections), K is split across blocks: each
+// split writes an fp32 partial and a second small kernel sums the splits
+// in a fixed order (deterministic), scales and rounds. No tensor maps on
+// this path: decode calls it 225 times a step.
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -165,8 +190,210 @@ __global__ void int8_mm_finalize(const float* __restrict__ partial,
   }
 }
 
+// ------------------------------------------------------- int8_mm_tma_kernel
+
+namespace hp = dla::hopper;
+
+constexpr int TBM = 128;      // output rows (x rows) of a block
+constexpr int TBK = 64;       // K depth of a ring stage
+constexpr int TTHREADS = 384; // producer warpgroup + 2 consumer warpgroups
+constexpr int GROUP_M = 8;    // M tiles walked together (L2 reuse)
+constexpr int STAGES = 6;
+constexpr int PRODUCER_REGS = 24, CONSUMER_REGS = 240;
+constexpr int H = 2;          // 64-column wgmma groups per consumer
+constexpr int TBN = 128 * H;  // output columns (w columns) of a block
+
+// byte offsets from the 1024-aligned base
+constexpr int XT = TBM * TBK * 2;    // x tile, bf16, swizzled
+constexpr int WSUB = TBK * 128;      // w box: [64 k, 128 n] int8
+constexpr int STAGE = XT + H * WSUB;
+constexpr int BAR = STAGES * STAGE;  // full[S], empty[S]
+constexpr int SMEM_BYTES = BAR + 2 * STAGES * 8 + 1024;
+
+// the dynamic shared memory rounded up to 1024 bytes (the swizzle atom)
+__device__ __forceinline__ uint8_t* smem_base(uint8_t* raw) {
+  return raw + ((1024 - (hp::smem_addr(raw) & 1023)) & 1023);
+}
+
+// One register of int8 as ldmatrix.trans delivers a [k, n] tile read as
+// 16-bit pairs: bytes (k, n), (k, n + 1), (k + 1, n), (k + 1, n + 1) ->
+// bf16x2 {(k, n), (k + 1, n)} and {(k, n + 1), (k + 1, n + 1)}, the k
+// pairs of the A fragments of output columns n and n + 1. Each byte
+// u + 128 becomes the fp32 2^23 + u + 128 (a byte permute); minus
+// 2^23 + 128 that is the value exactly, and as it has at most 8
+// significant bits its bf16 is the fp32's upper half (a byte permute,
+// no conversion instruction).
+__device__ __forceinline__ void int8_kpairs(uint32_t w, uint32_t& n0,
+                                            uint32_t& n1) {
+  const uint32_t u = w ^ 0x80808080u;  // byte + 128, unsigned
+  constexpr float MAGIC = 8388736.f;   // 2^23 + 128
+  const float f0 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440)) - MAGIC;
+  const float f1 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7441)) - MAGIC;
+  const float f2 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7442)) - MAGIC;
+  const float f3 = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7443)) - MAGIC;
+  n0 = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  n1 = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
+
+// The A fragments (w^T, bf16) of one stage for this warp: fr[kk * H + h]
+// is k-step kk of the warp's 16 output columns in half h. Fragment row
+// g (< 8) is output column 2 g of those 16, row g + 8 column 2 g + 1, so
+// that one transposed ldmatrix of 16-bit pairs gives both. The w tile is
+// H boxes of [64 k, 128 n] int8, 128-byte swizzled; column n_local of
+// the block is box n_local / 128, 16-byte chunk (n_local % 128) / 16.
+__device__ __forceinline__ void load_w_frags(uint32_t (&fr)[4 * H][4],
+                                             uint32_t wt, int cw, int warp,
+                                             int lane) {
+  const int j = lane >> 3, i = lane & 7;
+#pragma unroll
+  for (int p = 0; p < 2 * H; ++p) {
+    // matrices of this load: units 2p and 2p + 1 (unit u = kk * H + h),
+    // each its k-rows 0..7 then 8..15
+    const int u = 2 * p + (j >> 1);
+    const int kr = 16 * (u / H) + 8 * (j & 1) + i;
+    const int n_local = 64 * (H * cw + u % H) + 16 * warp;
+    const uint32_t addr = wt + (n_local >> 7) * (TBK * 128) + kr * 128 +
+                          ((((n_local & 127) >> 4) ^ (kr & 7)) << 4);
+    uint32_t r[4];
+    hp::ldsm_x4_trans(r, addr);
+    int8_kpairs(r[0], fr[2 * p][0], fr[2 * p][1]);
+    int8_kpairs(r[1], fr[2 * p][2], fr[2 * p][3]);
+    int8_kpairs(r[2], fr[2 * p + 1][0], fr[2 * p + 1][1]);
+    int8_kpairs(r[3], fr[2 * p + 1][2], fr[2 * p + 1][3]);
+  }
+}
+
+__global__ void __launch_bounds__(TTHREADS, 1)
+int8_mm_tma_kernel(const __grid_constant__ CUtensorMap tx,
+                   const __grid_constant__ CUtensorMap tw,
+                   const float* __restrict__ scale, bf16* __restrict__ out,
+                   int M, int N, int K) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_base(smem_raw);
+  const uint32_t base = hp::smem_addr(smem);
+  const uint32_t full = base + BAR, empty = full + 8 * STAGES;
+  // grouped walk over the output tiles
+  const int tiles_m = (M + TBM - 1) / TBM, tiles_n = (N + TBN - 1) / TBN;
+  const int per_group = GROUP_M * tiles_n;
+  const int first_m = (int)blockIdx.x / per_group * GROUP_M;
+  const int group_m = min(tiles_m - first_m, GROUP_M);
+  const int in_group = (int)blockIdx.x % per_group;
+  const int m0 = (first_m + in_group % group_m) * TBM;
+  const int n0 = in_group / group_m * TBN;
+  const int k_tiles = (K + TBK - 1) / TBK;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < STAGES; ++s) {
+      hp::mbar_init(full + 8 * s, 1);    // the producer's expect_tx
+      hp::mbar_init(empty + 8 * s, 8);   // the consumers' 8 warps
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 0) {  // ---------------------------------------------- producer
+    hp::setmaxnreg_dec<PRODUCER_REGS>();
+    if (threadIdx.x != 0) return;
+    hp::prefetch_map(&tx);
+    hp::prefetch_map(&tw);
+    int stage = 0;
+    uint32_t phase = 0;
+    for (int kt = 0; kt < k_tiles; ++kt) {
+      hp::mbar_wait(empty + 8 * stage, phase ^ 1);
+      const uint32_t st = base + stage * STAGE, bar = full + 8 * stage;
+      hp::mbar_arrive_expect_tx(bar, STAGE);
+      hp::tma_load_2d(st, &tx, bar, kt * TBK, m0);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        hp::tma_load_2d(st + XT + h * WSUB, &tw, bar, n0 + 128 * h,
+                        kt * TBK);
+      if (++stage == STAGES) stage = 0, phase ^= 1;
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------- consumers
+  // out^T = w^T x^T: each consumer owns 128 output columns (w^T rows, the
+  // A operand, converted into registers) against the block's 128 x rows
+  // (B, K-major from the x tile)
+  hp::setmaxnreg_inc<CONSUMER_REGS>();
+  const int cw = wg - 1, ct = threadIdx.x % 128;
+  const int warp = ct / 32, lane = ct % 32, gid = lane / 4, tig = lane % 4;
+  float acc[H][64];
+#pragma unroll
+  for (int h = 0; h < H; ++h)
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[h][i] = 0.f;
+
+  // Step kt issues its products from fragments `cur`, converts stage
+  // kt + 1's w tile into `nxt` while they run, then waits for them and
+  // frees stage kt. The two fragment sets alternate (the loop runs two
+  // steps per turn so that both stay in registers).
+  int stage = 0;
+  uint32_t phase = 0;
+  uint32_t fa[4 * H][4], fb[4 * H][4];
+  hp::mbar_wait(full, 0);
+  load_w_frags(fa, base + XT, cw, warp, lane);
+  auto step = [&](uint32_t (&cur)[4 * H][4], uint32_t (&nxt)[4 * H][4],
+                  int kt) {
+    const uint32_t st = base + stage * STAGE;
+#pragma unroll
+    for (int h = 0; h < H; ++h) hp::fence_regs(acc[h]);
+    hp::fence_regs(cur);
+    hp::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TBK / 16; ++kk) {
+      const uint64_t dx = hp::desc_sw128(st + kk * 32, 16, 1024);
+#pragma unroll
+      for (int h = 0; h < H; ++h)
+        hp::wgmma_rs_n128<0>(acc[h], cur[kk * H + h], dx, 1);
+    }
+    hp::wgmma_commit();
+    int next = stage + 1;
+    uint32_t next_phase = phase;
+    if (next == STAGES) next = 0, next_phase ^= 1;
+    if (kt + 1 < k_tiles) {
+      hp::mbar_wait(full + 8 * next, next_phase);
+      load_w_frags(nxt, base + next * STAGE + XT, cw, warp, lane);
+    }
+    hp::wgmma_wait<0>();
+    hp::fence_regs(cur);
+#pragma unroll
+    for (int h = 0; h < H; ++h) hp::fence_regs(acc[h]);
+    if (lane == 0) hp::mbar_arrive(empty + 8 * stage);
+    stage = next, phase = next_phase;
+  };
+  for (int kt = 0; kt < k_tiles; kt += 2) {
+    step(fa, fb, kt);
+    if (kt + 1 < k_tiles) step(fb, fa, kt + 1);
+  }
+
+  // epilogue: fragment rows g / g + 8 are output columns n / n + 1, the
+  // accumulator columns are output rows; scale per column, one bf16
+  // rounding, rows < M, columns < N
+#pragma unroll
+  for (int h = 0; h < H; ++h) {
+    const int n = n0 + 64 * (H * cw + h) + 16 * warp + 2 * gid;
+    if (n >= N) continue;  // N % 16 == 0: n + 1 < N as well
+    const float s0 = scale[n], s1 = scale[n + 1];
+#pragma unroll
+    for (int nb = 0; nb < 16; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = m0 + nb * 8 + tig * 2 + e;
+        if (m < M)
+          *reinterpret_cast<uint32_t*>(&out[(size_t)m * N + n]) =
+              dla::pack_bf16(acc[h][nb * 4 + e] * s0,
+                             acc[h][nb * 4 + 2 + e] * s1);
+      }
+  }
+}
+
 }  // namespace
 
+// M < 128 (decode): the split-K kernel; `partial` is [splits, M, N] fp32
+// scratch when splits > 1. Returns a cudaError_t.
 extern "C" int dla_int8_matmul(const void* x, const void* w, const void* scale,
                                void* out, void* partial, int M, int N, int K,
                                int splits, void* stream) {
@@ -189,3 +416,27 @@ extern "C" int dla_int8_matmul(const void* x, const void* w, const void* scale,
   }
   return (int)cudaGetLastError();
 }
+
+// M >= 128: the TMA + wgmma kernel at 128 x 256 output tiles. Returns a
+// cudaError_t, or hopper::kMapError + a CUresult when a tensor map cannot
+// be encoded.
+extern "C" int dla_int8_matmul_tma(const void* x, const void* w,
+                                   const void* scale, void* out, int M, int N,
+                                   int K, void* stream) {
+  CUtensorMap tx, tw;
+  int err = hp::make_matrix_map(&tx, x, M, K, 2, TBM, TBK);
+  if (!err) err = hp::make_matrix_map(&tw, w, K, N, 1, TBK, 128);
+  if (err) return err;
+  cudaFuncSetAttribute(int8_mm_tma_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       SMEM_BYTES);
+  const int tiles = ((M + TBM - 1) / TBM) * ((N + TBN - 1) / TBN);
+  int8_mm_tma_kernel<<<tiles, TTHREADS, SMEM_BYTES,
+                       static_cast<cudaStream_t>(stream)>>>(
+      tx, tw, static_cast<const float*>(scale), static_cast<bf16*>(out), M,
+      N, K);
+  return (int)cudaGetLastError();
+}
+
+// dynamic shared memory per block of the TMA kernel
+extern "C" int dla_int8_matmul_smem_bytes() { return SMEM_BYTES; }

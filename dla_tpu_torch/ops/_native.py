@@ -16,6 +16,7 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -38,10 +39,16 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
     # x, w, scale, out, partial, M, N, K, splits, stream
     "dla_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, scale, out, M, N, K, stream
+    "dla_int8_matmul_tma": [_P, _P, _P, _P, _I, _I, _I, _P],
+    # -> dynamic shared memory bytes per block
+    "dla_int8_matmul_smem_bytes": [],
     # q, k, v, qseg, kseg, out, lse, B, H, KH, T, S, D, strides, scale,
-    # window, stream
+    # window, SMs, stream
     "dla_flash_fwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                      ctypes.POINTER(ctypes.c_longlong), _F, _I, _P],
+                      ctypes.POINTER(ctypes.c_longlong), _F, _I, _I, _P],
+    # D -> dynamic shared memory bytes per block of the forward
+    "dla_flash_fwd_smem_bytes": [_I],
     # q, k, v, out, dout, lse, qseg, kseg, dq, delta (out), B, H, KH, T,
     # S, D, strides, scale, window, stream
     "dla_flash_bwd_dq": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
@@ -176,3 +183,10 @@ def check(status: int, name: str) -> None:
 def stream_handle(device) -> int:
     import torch
     return torch.cuda.current_stream(device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    """The multiprocessor count of a CUDA device, read once per device."""
+    import torch
+    return torch.cuda.get_device_properties(device).multi_processor_count

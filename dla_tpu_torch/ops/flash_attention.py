@@ -207,7 +207,7 @@ def flash_attention_forward(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(qseg), _ptr(kseg),
         out.data_ptr(), lse.data_ptr(), b, h, kh, t, s, d,
         _strides(q, k, v, out), float(scale), int(window or 0),
-        _native.stream_handle(q.device))
+        _native.sm_count(q.device), _native.stream_handle(q.device))
     _native.check(status, NAME)
     _native.LAUNCHES[NAME] += 1
     return out, lse

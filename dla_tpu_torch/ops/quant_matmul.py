@@ -1,23 +1,29 @@
 """int8 weight-only matmul: ``x @ (w * wscale)`` -> bf16.
 
 ``Transformer.quantize_weights`` stores rollout weights as int8 with
-per-output-channel fp32 scales. On the card ``int8_matmul`` launches
-the hand-written kernel in ``csrc/int8_matmul.cu`` (the counterpart of
+per-output-channel fp32 scales. On the card ``int8_matmul`` launches a
+hand-written kernel of ``csrc/int8_matmul.cu`` (the counterpart of
 ``dla_tpu.ops.quant_matmul``'s Pallas kernel), which reads the int8
-bytes and converts them in registers, so a decode step's weight traffic
-is the int8 bytes and nothing else. On CPU tensors it computes
+bytes and converts them on chip, so a decode step's weight traffic is
+the int8 bytes and nothing else. ``plan`` picks the kernel from the
+shape: M >= 128 (prefill) the TMA + wgmma kernel at 128 x 256 output
+tiles; smaller M (decode) the split-K mma.sync kernel,
+which needs no tensor maps. On CPU tensors it computes
 ``int8_matmul_plain``: the same function with the same casts (x -> bf16,
 w -> bf16 exactly, fp32 accumulation, fp32 scale on the product, one
 bf16 rounding).
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from dla_tpu_torch.ops import _native
 
 NAME = "int8_matmul"
-_BLOCK = 64  # the kernel's M/N/K tile
+_BLOCK = 64       # the split-K kernel's M/N/K tile
+_TMA_ROWS = 128   # output rows of a TMA kernel block (two warpgroups)
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -29,15 +35,24 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
     return (acc * wscale.reshape(-1).float()).to(torch.bfloat16)
 
 
-def _splits(m: int, n: int, k: int, device) -> int:
-    """K splits so that at least one block lands on every SM (decode's
-    M = batch gives few output tiles); 1 when the tiles already do."""
+class Plan(NamedTuple):
+    path: str     # "tma" (TMA + wgmma) or "splitk" (mma.sync, split K)
+    splits: int   # K splits of the split-K path (1 on the TMA path)
+
+
+def plan(m: int, n: int, k: int, sms: int) -> Plan:
+    """The kernel and K splits for x [m, k] @ w [k, n] on a card with
+    ``sms`` multiprocessors. M >= 128 takes the TMA kernel; smaller M
+    the split-K kernel, K split so that at least one block lands on
+    every SM, never into more splits than a quarter of its 64-deep K
+    tiles (and at least 1)."""
+    if m >= _TMA_ROWS:
+        return Plan("tma", 1)
     tiles = -(-m // _BLOCK) * -(-n // _BLOCK)
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
     if tiles >= sms:
-        return 1
+        return Plan("splitk", 1)
     k_tiles = -(-k // _BLOCK)
-    return max(1, min(-(-sms // tiles), k_tiles // 4, 16))
+    return Plan("splitk", max(1, min(-(-sms // tiles), k_tiles // 4, 16)))
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -74,15 +89,21 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
             raise ValueError("int8_matmul: operands must be 16-byte aligned")
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    if m == 0:
-        return out.reshape(*lead, n)
-    splits = _splits(m, n, k, x.device)
-    partial = torch.empty((splits, m, n) if splits > 1 else (1,),
-                          dtype=torch.float32, device=x.device)
+    if m == 0 or k == 0:     # an empty product: nothing to launch
+        return out.zero_().reshape(*lead, n)
+    p = plan(m, n, k, _native.sm_count(x.device))
     lib = _native.library()
-    status = lib.dla_int8_matmul(
-        x2.data_ptr(), w.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-        partial.data_ptr(), m, n, k, splits, _native.stream_handle(x.device))
+    stream = _native.stream_handle(x.device)
+    if p.path == "tma":
+        status = lib.dla_int8_matmul_tma(
+            x2.data_ptr(), w.data_ptr(), wscale.data_ptr(), out.data_ptr(),
+            m, n, k, stream)
+    else:
+        partial = torch.empty((p.splits, m, n) if p.splits > 1 else (1,),
+                              dtype=torch.float32, device=x.device)
+        status = lib.dla_int8_matmul(
+            x2.data_ptr(), w.data_ptr(), wscale.data_ptr(), out.data_ptr(),
+            partial.data_ptr(), m, n, k, p.splits, stream)
     _native.check(status, NAME)
     _native.LAUNCHES[NAME] += 1
     return out.reshape(*lead, n)

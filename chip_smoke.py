@@ -8,19 +8,23 @@ every fault, and the result lines are printed only when all passed):
 
 1. build   — compile the CUDA kernels from ``dla_tpu_torch/csrc`` (nvcc,
              sm_90a, one process per source) and print the build time,
-             ptxas resource usage, a summary line per wgmma kernel (flash
-             forward, dQ, dK/dV, the int8 matmul's TMA kernel: registers,
-             spills, dynamic shared memory) and, where ``cuobjdump``
-             exists, the HGMMA (wgmma) count of each kernel's SASS; fails
-             on a ptxas "Potential Performance Loss" (C75xx: wgmma
-             serialized) warning or a wgmma kernel with no HGMMA;
+             ptxas resource usage, a summary line per tensor-core kernel
+             (flash forward, dQ, dK/dV, the int8 matmul's prefill and
+             decode kernels, decode attention: registers, spills,
+             dynamic shared memory) and, where ``cuobjdump`` exists, the
+             HGMMA (wgmma) count of each kernel's SASS; fails on a ptxas
+             "Potential Performance Loss" (C75xx: wgmma serialized)
+             warning or a wgmma kernel with no HGMMA;
 2. parity  — hold each kernel against its plain PyTorch version on the
              card at the paths' shapes: flash forward at T=128 (rollout),
              at the SFT shape with packed segment ids, at ragged T with
              segments and a window (head dims 64 and 96), decode attention
-             over an int8 cache of S=384 with the fill mid-chunk and NaN
-             past it, the int8 matmul at M=64 (split-K kernel) and M=8192
-             (TMA kernel) for every projection and lm_head and at ragged
+             over an int8 cache of S=384 with the fill as a device scalar
+             mid-slice and NaN past it (and as a host int), at g = 4 and
+             8, head dims 64, 96, 128 and 256, and at few (batch, kv
+             head) pairs, where the kernel splits S over a cluster; the
+             int8 matmul at M = 1 and 64 (decode kernel), 65, 127 and
+             8192 (TMA kernel) for every projection and lm_head and at ragged
              shapes (M 8190, K 4104, N 1040); the flash backward (dQ,
              dK/dV) at the SFT shape with packed segments, with a window,
              at ragged T=77, at head_dim 128 and at head_dim 96 (packed
@@ -30,19 +34,26 @@ every fault, and the result lines are printed only when all passed):
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
-             int8 matmul's prefill shapes also through the first port's
-             split-K kernel (same run); the flash forward, dQ and dK/dV
-             also at the SFT shape, and with packed segment ids (bound
-             from the live pairs of those ids; yardstick: SDPA given the
-             block-diagonal causal mask, its backend named);
+             flash forward, dQ and dK/dV also at the SFT shape, and with
+             packed segment ids (bound from the live pairs of those ids;
+             yardstick: SDPA given the block-diagonal causal mask, its
+             backend named);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
              prompts of width 128, 256 new tokens, temperature 0.7,
-             top_p 0.9, no EOS). Launch counts must equal the path's
-             expected counts, outputs must be well formed, and the logits
-             of the prefill and 4 decode steps must match the same model
-             running the plain versions (4 layers);
+             top_p 0.9, no EOS), whose decode loop runs as one CUDA
+             graph. The first generate runs under torch.profiler: each
+             wrapper's count of the launches it issued (the prefill's,
+             the first step's, the capture's) and the card's launches of
+             each kernel counted in the trace (graph replays included)
+             must equal the path's counts; outputs must be well formed
+             and equal (tokens, logps, lengths) an eager loop of
+             ``build_decode_step`` from the same generator seed, and the
+             logits of the prefill and 4 decode steps must match the
+             same model running the plain versions (4 layers). Decode
+             ms/step graphed and eager, and the device time of an eager
+             step and of the traced generate's graph replays;
 5. train   — ``dla_tpu_torch.training.train_sft.main`` on
              config/sft_config.yaml with llama3.2-1b at full width and
              depth (random init, byte tokenizer, flash + full remat, fp32
@@ -166,7 +177,8 @@ def main() -> int:
                 if "Potential Performance Loss" in line
                 or re.search(r"\bC75\d\d\b", line)]
         run.check(not slow, f"no ptxas wgmma serialization warning {slow}")
-        counted = [r["hgmma"] for r in run.report["kernel_build"].values()]
+        counted = [r["hgmma"] for r in run.report["kernel_build"].values()
+                   if r["wgmma"]]
         run.check(all(c == "no cuobjdump" or (c or 0) > 0 for c in counted),
                   f"every wgmma kernel has HGMMA in its SASS {counted}")
 
@@ -208,24 +220,29 @@ def main() -> int:
     return 0
 
 
-# the wgmma kernels: mangled-name pattern (name[, template argument]) ->
-# its dynamic shared memory per block, asked of the library
-WGMMA_KERNELS = (
+# the tensor-core kernels: mangled-name pattern (name[, template
+# arguments]) -> (wgmma?, its dynamic shared memory per block, asked of
+# the library)
+SUMMARY_KERNELS = (
     (r"(flash_bwd_dq_kernel)ILi(\d+)E",
-     lambda lib, d: lib.dla_flash_bwd_smem_bytes(0, d)),
+     True, lambda lib, d: lib.dla_flash_bwd_smem_bytes(0, d)),
     (r"(flash_bwd_dkv_kernel)ILi(\d+)E",
-     lambda lib, d: lib.dla_flash_bwd_smem_bytes(1, d)),
+     True, lambda lib, d: lib.dla_flash_bwd_smem_bytes(1, d)),
     (r"(flash_fwd_kernel)ILi(\d+)E",
-     lambda lib, d: lib.dla_flash_fwd_smem_bytes(d)),
+     True, lambda lib, d: lib.dla_flash_fwd_smem_bytes(d)),
     (r"(int8_mm_tma_kernel)E",
-     lambda lib: lib.dla_int8_matmul_smem_bytes()),
+     True, lambda lib: lib.dla_int8_matmul_smem_bytes()),
+    (r"(int8_mm_decode_kernel)ILi(\d+)E",          # <consumers>
+     True, lambda lib, cw: lib.dla_int8_matmul_decode_smem_bytes(64 * cw)),
+    (r"(decode_attn_kernel)ILi(\d+)ELb(\d)E",        # <D, int8>: mma.sync
+     False, lambda lib, d, q: lib.dla_decode_attention_smem_bytes(d, q)),
 )
 
 
 def kernel_build_summary(log: str, lib_path: Path, native):
-    """Per wgmma kernel instantiation: ptxas registers and spill bytes
-    (from the build log), dynamic shared memory per block (asked of the
-    library) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
+    """Per tensor-core kernel instantiation: ptxas registers and spill
+    bytes (from the build log), dynamic shared memory per block (asked of
+    the library) and, where ``cuobjdump`` exists, the HGMMA (wgmma)
     instructions in its SASS. Printed one line each."""
     import shutil
     stats, cur = {}, None
@@ -257,7 +274,7 @@ def kernel_build_summary(log: str, lib_path: Path, native):
     lib = native.library()
     out = {}
     for mangled, st in sorted(stats.items()):
-        for pattern, smem_of in WGMMA_KERNELS:
+        for pattern, wgmma, smem_of in SUMMARY_KERNELS:
             m = re.search(pattern, mangled)
             if m:
                 break
@@ -267,7 +284,7 @@ def kernel_build_summary(log: str, lib_path: Path, native):
         name = m[1] + "".join(f"<{a}>" for a in args)
         smem = smem_of(lib, *args)
         row = dict(registers=st.get("registers"), spill_bytes=st.get("spill"),
-                   dynamic_smem_bytes=smem,
+                   dynamic_smem_bytes=smem, wgmma=wgmma,
                    hgmma=hgmma.get(mangled, 0) if hgmma else "no cuobjdump")
         out[name] = row
         print(f"   ptxas {name}: {row['registers']} registers, spill "
@@ -289,9 +306,11 @@ def _flash_inputs(torch, dev, g, b=B, t=PROMPT, h=HEADS, kh=KV_HEADS, d=HD):
 
 
 def _decode_inputs(torch, dev, g, fill, b=B, s=PROMPT + NEW, kh=KV_HEADS,
-                   g_rows=HEADS // KV_HEADS, d=HD, int8=True):
+                   g_rows=HEADS // KV_HEADS, d=HD, int8=True, fill_dev=True):
     """Decode inputs at cache length s, valid columns < fill (70% of
-    them), NaN planted in the scales (int8) or values (bf16) past it."""
+    them), NaN planted in the scales (int8) or values (bf16) past it; the
+    fill as a 0-dim int32 tensor on the card (the decode step's form) or,
+    with ``fill_dev=False``, a host int."""
     h = kh * g_rows
     mk = lambda *sh: torch.randn(sh, generator=g, device=dev)
     q, kn, vn = (mk(b, 1, h, d).to(torch.bfloat16),
@@ -315,6 +334,8 @@ def _decode_inputs(torch, dev, g, fill, b=B, s=PROMPT + NEW, kh=KV_HEADS,
         kc[:, fill:] = float("nan")
         vc[:, fill:] = float("nan")
         ks = vs = None
+    if fill_dev:
+        fill = torch.tensor(fill, dtype=torch.int32, device=dev)
     return dict(q=q, k_cache=kc, v_cache=vc, k_new=kn, v_new=vn, bias=bias,
                 k_scale=ks, v_scale=vs, kv_fill=fill)
 
@@ -325,22 +346,6 @@ def _int8_inputs(torch, dev, g, m, k, n):
                       dtype=torch.int8)
     sc = torch.rand((n,), generator=g, device=dev) * (0.04 / 127) + 1e-5
     return x, w, sc
-
-
-def _int8_splitk(torch, native, x, w, sc):
-    """The first port's int8 kernel (mma.sync, 64 x 64 tiles, one K
-    split), which the planner keeps for M < 128, called at any M: at the
-    prefill shapes, the prefill kernel the port had before the TMA one.
-    No launch is counted."""
-    m, k = x.shape
-    n = w.shape[1]
-    out = torch.empty((m, n), dtype=torch.bfloat16, device=x.device)
-    unused = torch.empty((1,), dtype=torch.float32, device=x.device)
-    native.check(native.library().dla_int8_matmul(
-        x.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(),
-        unused.data_ptr(), m, n, k, 1, native.stream_handle(x.device)),
-        "int8_matmul split-K kernel")
-    return out
 
 
 def _call_decode(fn, inp):
@@ -399,45 +404,63 @@ def parity(run, torch, dev):
             f"max|lse err| {e_lse:.3g} <= 1e-3")
         errs.setdefault("flash_attention_fwd", e)
 
-    # decode attention: bf16 outputs of |x| < ~1 -> 2e-2
+    # decode attention: bf16 outputs of |x| < ~1 -> 2e-2. Fill mid-slice
+    # (slices are 16 columns) with NaN past it; the split cases have few
+    # (batch, kv head) pairs, so the kernel splits S over a cluster
+    sms = _native.sm_count(dev)
     for label, kw in [
-            ("path B64 S384 int8 fill 300 (mid-chunk), NaN past fill",
+            ("path B64 S384 int8 g4 D128, device fill 300, NaN past fill",
              dict(fill=300)),
-            ("bf16 cache fill 150, NaN past fill, D256 g8",
+            ("path shape, host-int fill 300", dict(fill=300, fill_dev=False)),
+            ("path shape, device fill 383 (the last step)", dict(fill=383)),
+            ("int8 g8 D128 fill 201", dict(fill=201, b=32, kh=4, g_rows=8)),
+            ("int8 g8 D64 fill 777 of S1024, few pairs",
+             dict(fill=777, b=2, s=1024, kh=2, g_rows=8, d=64)),
+            ("int8 g4 D64 fill 129", dict(fill=129, b=64, kh=8, d=64)),
+            ("int8 g4 D128 fill 250, few pairs",
+             dict(fill=250, b=4, kh=2)),
+            ("bf16 cache fill 150, NaN past fill, D256 g8, few pairs",
              dict(fill=150, b=4, kh=2, g_rows=8, d=256, int8=False)),
             ("int8 fill 1 (self column + one)", dict(fill=1, b=8)),
-            ("int8 head_dim 96 (phi3-mini) fill 100", dict(
+            ("int8 fill 0 (self column only)", dict(fill=0, b=8)),
+            ("int8 head_dim 96 (phi3-mini) g1 fill 100", dict(
                 fill=100, b=4, kh=4, g_rows=1, d=96))]:
         inp = _decode_inputs(torch, dev, g, **kw)
         out = _call_decode(dk.flash_decode_attention, inp)
         ref = _call_decode(dk.flash_decode_attention_plain, inp)
         torch.cuda.synchronize()
         e = (out.float() - ref.float()).abs().max().item()
+        b_, s_, kh_ = inp["k_cache"].shape[:3]
+        split = dk.decode_split(b_ * kh_, s_, sms)
         run.check(e <= 2e-2 and torch.isfinite(out.float()).all().item(),
-                  f"decode {label}: max|err| {e:.3g} <= 2e-2")
+                  f"decode {label} (split {split}): max|err| {e:.3g} <= 2e-2")
         errs.setdefault("decode_attention", e)
     inp = _decode_inputs(torch, dev, g, fill=200, b=8)
     cap = dict(logit_softcap=30.0)
     out = dk.flash_decode_attention(
         inp["q"], inp["k_cache"], inp["v_cache"], inp["k_new"], inp["v_new"],
         bias=inp["bias"], k_scale=inp["k_scale"], v_scale=inp["v_scale"],
-        kv_fill=200, **cap)
+        kv_fill=inp["kv_fill"], **cap)
     ref = dk.flash_decode_attention_plain(
         inp["q"], inp["k_cache"], inp["v_cache"], inp["k_new"], inp["v_new"],
         bias=inp["bias"], k_scale=inp["k_scale"], v_scale=inp["v_scale"],
-        kv_fill=200, **cap)
+        kv_fill=inp["kv_fill"], **cap)
     e = (out.float() - ref.float()).abs().max().item()
     run.check(e <= 2e-2, f"decode softcap 30: max|err| {e:.3g} <= 2e-2")
 
     # int8 matmul: one bf16 rounding of fp32 sums in another order -> at
     # most ~1 bf16 ulp: max|err| <= 1e-2 * max|ref|
     worst = 0.0   # max absolute error over the path's shapes
-    sms = _native.sm_count(dev)
     shapes = [(64, k, n) for (k, n) in PROJ.values()] + [(64, HID, VOCAB)]
     shapes += [(B * PROMPT, k, n) for (k, n) in PROJ.values()]
     path_shapes = set(shapes)
+    # M = 1: the decode kernel's edge; 65 and 127: past the decode
+    # batch, the TMA kernel's 128-row tile with the rows past M as zeros
+    shapes += [(m, k, n) for m in (1, 65, 127)
+               for (k, n) in list(PROJ.values()) + [(HID, VOCAB)]]
     shapes += [(130, HID, 4096), (5, 256, 48),   # ragged M and N
-               (8190, 4104, 1040), (129, 72, 272)]   # ragged M, K and N
+               (8190, 4104, 1040), (129, 72, 272),   # ragged M, K and N
+               (64, 4104, 1040), (100, 72, 272), (33, 4104, 14336)]
     for m, k, n in dict.fromkeys(shapes):
         x, w, sc = _int8_inputs(torch, dev, g, m, k, n)
         out = qm.int8_matmul(x, w, sc)
@@ -447,7 +470,8 @@ def parity(run, torch, dev):
         tol = 1e-2 * ref.float().abs().max().item()
         p = qm.plan(m, n, k, sms)
         run.check(e <= tol, f"int8_matmul M{m} K{k} N{n} ({p.path}, "
-                  f"{p.splits} splits): max|err| {e:.3g} <= {tol:.3g}")
+                  f"{p.tile_n} columns, {p.splits} splits): max|err| "
+                  f"{e:.3g} <= {tol:.3g}")
         if (m, k, n) in path_shapes:
             worst = max(worst, e)
         del x, w, sc, out, ref
@@ -663,22 +687,18 @@ def timing(run, torch, dev):
                    for s in sets]
             t_l = _time_ms(torch, [lambda s=s: torch.matmul(*s)
                                    for s in deq * 2])
-            # the first port's kernel at this shape, for the same-run
-            # comparison (at M = 64 it is the kernel the path runs)
-            t_1 = t_k if m < 128 else _time_ms(
-                torch, [lambda s=s: _int8_splitk(torch, _native, *s)
-                        for s in sets * 2])
-            measured[key] = (t_k, t_p, t_l, t_1, nbytes, flops)
+            measured[key] = (t_k, t_p, t_l, nbytes, flops)
             del sets, deq
-        t_k, t_p, t_l, t_1, nbytes, flops = measured[key]
+        t_k, t_p, t_l, nbytes, flops = measured[key]
         bms, by = bound_ms(nbytes, flops)
+        p = qm.plan(m, n, k, _native.sm_count(dev))
         per_shape.append(dict(proj=name, M=m, K=k, N=n, ms=t_k, plain_ms=t_p,
                               library_ms=t_l, bound_ms=bms, bound_by=by,
-                              splitk_kernel_ms=t_1))
+                              plan=p._asdict()))
         print(f"   int8_matmul {name:7s} M{m:5d} K{k:5d} N{n:6d}: "
               f"{t_k:.4f} ms (bound {bms:.4f} {by}, torch.matmul "
-              f"{t_l:.4f}, plain {t_p:.4f}, split-K kernel {t_1:.4f})",
-              flush=True)
+              f"{t_l:.4f}, plain {t_p:.4f}; {p.path}, {p.tile_n} columns, "
+              f"{p.splits} splits)", flush=True)
 
     def total(rows, field):
         return sum(r[field] * (1 if r["proj"] == "lm_head" else LAYERS)
@@ -689,6 +709,7 @@ def timing(run, torch, dev):
         [r for r in step if r["proj"] == "lm_head"]
     by_step = ("bytes" if sum(r["bound_by"] == "bytes" for r in step)
                * 2 >= len(step) else "operations")
+    seq, seq_lib = _int8_step_sequence(torch, dev, g, qm)
     run.kernels["int8_matmul"] = dict(
         name="int8_matmul", route="cuda",
         source="dla_tpu_torch/csrc/int8_matmul.cu",
@@ -697,25 +718,61 @@ def timing(run, torch, dev):
         ms=total(step, "ms"), plain_ms=total(step, "plain_ms"),
         bound_ms=total(step, "bound_ms"), bound_by=by_step,
         library_ms=total(step, "library_ms"),
+        kernels=["int8_mm_decode_kernel (M <= 64)",
+                 "int8_mm_tma_kernel (M > 64)"],
+        step_sequence_ms=seq, library_step_sequence_ms=seq_lib,
         unit="one decode step: 7 projections x 32 layers + lm_head at "
-             "M=64 (225 launches); max_abs_err over the path's M=64 and "
-             "M=8192 shapes")
+             "M=64 (225 launches of int8_mm_decode_kernel); ms, plain_ms, "
+             "library_ms and bound_ms: each shape's median summed over "
+             "the step; step_sequence_ms and library_step_sequence_ms: "
+             "the 225 calls in the step's order over 32 layers' own "
+             "weights (each read cold), one pass timed, the kernel and "
+             "torch.matmul on the dequantized bf16 weights; max_abs_err "
+             "over the path's M=64 and M=8192 shapes")
     run.report["int8_matmul_shapes"] = per_shape
     run.report["int8_matmul_prefill"] = {
         f: total(pre, f) for f in ("ms", "plain_ms", "library_ms",
-                                   "bound_ms", "splitk_kernel_ms")}
+                                   "bound_ms")}
     run.kernels["int8_matmul"]["prefill"] = dict(
         run.report["int8_matmul_prefill"],
-        unit="one prefill: 7 projections x 32 layers at M=8192 (TMA "
-             "kernel) + lm_head at M=64; splitk_kernel_ms: the first "
-             "port's kernel at the same shapes")
+        unit="one prefill: 7 projections x 32 layers at M=8192 "
+             "(int8_mm_tma_kernel) + lm_head at M=64")
     run.report["timing_work"] = timings
     for kname, kv in run.kernels.items():
         print(f"   {kname}: {kv['ms']:.4f} ms vs bound {kv['bound_ms']:.4f} "
               f"({kv['bound_by']}), library {kv['library_ms']:.4f}, plain "
               f"{kv['plain_ms']:.4f} [{kv['unit']}]", flush=True)
     print(f"   int8_matmul per prefill: {run.report['int8_matmul_prefill']}")
+    print(f"   int8_matmul decode step, 225 calls in order: {seq:.4f} ms, "
+          f"torch.matmul {seq_lib:.4f} ms", flush=True)
     timing_sft(run, torch, dev, g)
+
+
+def _int8_step_sequence(torch, dev, g, qm):
+    """Device ms of one decode step's 225 int8 calls in the step's order
+    (wq wk wv wo gate up down in each of 32 layers, then lm_head) at
+    M = 64, each layer with its own weights, so that every weight byte
+    comes from HBM as in the rollout (7.5 GB: past any cache); then of
+    torch.matmul over the same sequence of dequantized bf16 weights.
+    Each the median of 3 passes, each after a GPU-side spin that hides
+    the host."""
+    layers = [[_int8_inputs(torch, dev, g, 1, k, n)[1:] for k, n in
+               PROJ.values()] for _ in range(LAYERS)]
+    head = _int8_inputs(torch, dev, g, 1, HID, VOCAB)[1:]
+    x_h = torch.randn((B, HID), generator=g, device=dev).to(torch.bfloat16)
+    x_f = torch.randn((B, FFN), generator=g, device=dev).to(torch.bfloat16)
+    calls = [(x_f if k == FFN else x_h, *ws) for layer in layers
+             for (k, _), ws in zip(PROJ.values(), layer)]
+    calls.append((x_h, *head))
+    del layers, head
+    t = _time_ms(torch, [lambda c=c: qm.int8_matmul(*c) for c in calls],
+                 reps=3) * len(calls)
+    deq = [(x, (w.float() * sc).to(torch.bfloat16)) for x, w, sc in calls]
+    t_lib = _time_ms(torch, [lambda c=c: torch.matmul(*c) for c in deq],
+                     reps=3) * len(deq)
+    del calls, deq
+    torch.cuda.empty_cache()
+    return t, t_lib
 
 
 def timing_sft(run, torch, dev, g):
@@ -977,21 +1034,50 @@ def slice_run(run, torch, dev, native):
                            do_sample=True, eos_token_id=-1, pad_token_id=0)
     generate = build_generate_fn(model, gen)
 
+    # the main path, traced: the wrappers count the launches they issue
+    # (the prefill, the eager first step and the one capture of the
+    # step); the card's launches, replays included, are counted from
+    # torch.profiler's kernel records
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.reset_peak_memory_stats()
     native.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = generate(params, ids, mask, _gen(torch, dev, SEED + 7))
-    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = generate(params, ids, mask, _gen(torch, dev, SEED + 7))
+        torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    counts = native.launch_counts()
-    want = {"flash_attention_fwd": LAYERS, "decode_attention": LAYERS * NEW,
-            "int8_matmul": (7 * LAYERS + 1) * (1 + NEW)}
-    print(f"   launches {counts}, expected {want}")
-    run.check(counts == want, "launch counts equal the path's counts")
+    wrapped = native.launch_counts()
+    trace = _trace_kernels(torch, prof)
+    del prof
+    per_step = {"flash_attention_fwd": 0, "decode_attention": LAYERS,
+                "int8_matmul": 7 * LAYERS + 1}
+    prefill = {"flash_attention_fwd": LAYERS, "decode_attention": 0,
+               "int8_matmul": 7 * LAYERS + 1}
+    want_wrapped = {k: prefill[k] + 2 * v for k, v in per_step.items()}
+    want = {k: prefill[k] + NEW * v for k, v in per_step.items()}
+    counts = {k: sum(n for name, n in trace["launches"].items()
+                     if any(sym in name for sym in KERNEL_SYMBOLS[k]))
+              for k in want}
+    replayed = {k: sum(n for name, n in trace["replay_launches"].items()
+                       if any(sym in name for sym in KERNEL_SYMBOLS[k]))
+                for k in want}
+    print(f"   wrapper launches (prefill, first step, capture) {wrapped}, "
+          f"expected {want_wrapped}")
+    print(f"   card launches (trace) {counts}, expected {want}; in "
+          f"{trace['replays']} graph replays {replayed}", flush=True)
+    run.check(wrapped == want_wrapped, "each wrapper issued its launches: "
+              "the prefill's, the first step's and the capture's")
+    run.check(counts == want, "the card's launches of each kernel, counted "
+              "in the trace, equal the path's counts")
+    run.check(trace["replays"] == NEW - 1 and replayed == {
+        k: (NEW - 1) * v for k, v in per_step.items()},
+        "the graph replayed the step 255 times, each with its launches")
     for name in want:
         if name in run.kernels:
-            run.kernels[name]["launches"] = counts.get(name, 0)
+            run.kernels[name]["launches"] = counts[name]
+            run.kernels[name]["wrapper_launches"] = wrapped.get(name, 0)
 
     toks, lps = out["response_tokens"], out["response_logps"]
     run.check(tuple(toks.shape) == (B, NEW) and tuple(
@@ -1003,7 +1089,9 @@ def slice_run(run, torch, dev, native):
               "lengths = prompt + 256")
     peak = torch.cuda.max_memory_allocated() / 2**30
 
-    # steady-state timing: prefill alone, then a second full generate
+    # steady-state timing: prefill alone, a second full generate (graphed
+    # decode), then the same from the same seed through an eager loop of
+    # build_decode_step: its outputs must equal the graph's
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, cache = model.start_decode(params, ids, mask, NEW)
@@ -1011,17 +1099,33 @@ def slice_run(run, torch, dev, native):
     t_pre = time.perf_counter() - t0
     del logits, cache
     t0 = time.perf_counter()
-    generate(params, ids, mask, _gen(torch, dev, SEED + 8))
+    out2 = generate(params, ids, mask, _gen(torch, dev, SEED + 8))
     torch.cuda.synchronize()
     t_gen2 = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_toks, e_lps = _eager_decode(torch, model, params, ids, mask, gen,
+                                  _gen(torch, dev, SEED + 8))
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    same = (torch.equal(out2["response_tokens"], e_toks)
+            and torch.equal(out2["response_logps"], e_lps))
+    run.check(same, "the graphed generate's tokens and logps equal an eager "
+              "build_decode_step loop's from the same generator seed")
+    run.check(bool((out2["lengths"] == mask.sum(1) + NEW).all()),
+              "graphed generate #2: lengths = prompt + 256")
     dec = (t_gen2 - t_pre) / NEW
+    dec_eager = (t_eager - t_pre) / NEW
     slice_rep = dict(
         prefill_ms=t_pre * 1e3, decode_ms_per_step=dec * 1e3,
-        generate_s_first=t_gen, generate_s=t_gen2,
+        decode_ms_per_step_eager=dec_eager * 1e3,
+        generate_s_first_traced=t_gen, generate_s=t_gen2,
+        eager_generate_s=t_eager,
         tokens_per_s=B * NEW / t_gen2, decode_tokens_per_s=B / dec,
-        peak_mem_gib=peak, launches=counts)
+        tokens_per_s_eager=B * NEW / t_eager,
+        peak_mem_gib=peak, launches=counts, wrapper_launches=wrapped)
     run.report["slice"] = slice_rep
     print("   slice " + json.dumps(slice_rep), flush=True)
+    del out2, e_toks, e_lps
 
     # reference: same weights at 4 layers, kernels vs plain versions, and
     # the plain versions with fp32 activations (the bf16 noise floor)
@@ -1076,13 +1180,65 @@ def slice_run(run, torch, dev, native):
               "4-layer prefill + 4 decode-step logits match the plain "
               "versions (max |err| <= 5% of max|logit|, rms <= 2% of rms)")
     profile_decode(run, torch, model, params, ids, mask, gen,
+                   slice_rep["decode_ms_per_step_eager"], trace,
                    slice_rep["decode_ms_per_step"])
 
 
-OUR_KERNELS = ("int8_mm_kernel", "int8_mm_finalize", "int8_mm_tma_kernel",
-               "flash_fwd_kernel",
-               "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-               "decode_chunk_kernel", "decode_merge_kernel")
+def _eager_decode(torch, model, params, ids, mask, gen, generator):
+    """The rollout's decode as an eager loop of ``build_decode_step`` (the
+    public single-step API): (tokens [B, NEW], chosen-token logps), as
+    ``build_generate_fn`` computes them with no EOS."""
+    from dla_tpu_torch.generation.engine import build_decode_step
+    step = build_decode_step(model, gen)
+    logits, cache = model.start_decode(params, ids, mask, NEW)
+    done = torch.zeros((ids.shape[0],), dtype=torch.bool, device=ids.device)
+    toks, lps = [], []
+    for _ in range(NEW):
+        prev = logits.float()
+        tok, _, logits, cache, done = step(generator, params, logits, cache,
+                                           done)
+        lps.append(torch.log_softmax(prev, dim=-1).gather(
+            1, tok[:, None].long())[:, 0])
+        toks.append(tok)
+    return torch.stack(toks, 1), torch.stack(lps, 1)
+
+
+OUR_KERNELS = ("int8_mm_decode_kernel", "int8_mm_tma_kernel",
+               "flash_fwd_kernel", "flash_bwd_dq_kernel",
+               "flash_bwd_dkv_kernel", "decode_attn_kernel")
+# each rollout wrapper's kernels, as their names read in a trace
+KERNEL_SYMBOLS = {"flash_attention_fwd": ("flash_fwd_kernel",),
+                  "decode_attention": ("decode_attn_kernel",),
+                  "int8_matmul": ("int8_mm_decode_kernel",
+                                  "int8_mm_tma_kernel")}
+
+
+def _trace_kernels(torch, prof):
+    """The kernel records of a torch.profiler trace: launches by kernel
+    name; the same, and device ns by name, for the kernels of CUDA graph
+    replays (a kernel of a graph carries the correlation id of the
+    cudaGraphLaunch that ran it); the number of replays, and the ns from
+    the first replay kernel's start to the last one's end."""
+    from torch.autograd import DeviceType
+    evs = prof.profiler.kineto_results.events()
+    graph_ids = {e.correlation_id() for e in evs
+                 if e.device_type() == DeviceType.CPU
+                 and e.name().startswith("cudaGraphLaunch")}
+    launches, replay_launches, replay_ns = {}, {}, {}
+    first, last = None, None
+    for e in evs:
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        name = e.name()
+        launches[name] = launches.get(name, 0) + 1
+        if e.correlation_id() in graph_ids:
+            replay_launches[name] = replay_launches.get(name, 0) + 1
+            replay_ns[name] = replay_ns.get(name, 0) + e.duration_ns()
+            first = min(first or e.start_ns(), e.start_ns())
+            last = max(last or 0, e.start_ns() + e.duration_ns())
+    return dict(launches=launches, replay_launches=replay_launches,
+                replay_ns=replay_ns, replays=len(graph_ids),
+                replay_span_ns=(last - first) if first else 0)
 
 
 def _device_ms(prof, n: int, ops: bool = False):
@@ -1103,16 +1259,22 @@ def _device_ms(prof, n: int, ops: bool = False):
     return per_name, sum(per_name.values())
 
 
-def profile_decode(run, torch, model, params, ids, mask, gen, step_ms):
-    """Device time of three engine decode steps (sampling + decode_step)
-    from torch.profiler's CUDA activity, against the unprofiled wall
-    time per step: the device's busy share of a decode step."""
+def profile_decode(run, torch, model, params, ids, mask, gen, step_ms,
+                   trace, graph_step_ms):
+    """Device time of a decode step against its wall time: the device's
+    busy share of a step, and its device time by kernel. Eager: three
+    engine steps (``build_decode_step``: sampling + decode_step) under
+    torch.profiler, against the slice's unprofiled eager loop, with the
+    device time also by the ATen op that launched it. Graphed: the
+    replays of the step in the traced main-path generate (the graph
+    ``build_generate_fn`` captured), against the unprofiled graphed
+    generate's ms per step and against the traced replays' span."""
     from torch.profiler import ProfilerActivity, profile
 
     from dla_tpu_torch.generation.engine import build_decode_step
     step = build_decode_step(model, gen)
     g = _gen(torch, ids.device, SEED + 9)
-    logits, cache = model.start_decode(params, ids, mask, 8)
+    logits, cache = model.start_decode(params, ids, mask, 16)
     done = torch.zeros((ids.shape[0],), dtype=torch.bool, device=ids.device)
     step(g, params, logits, cache, done)          # warm
     torch.cuda.synchronize()
@@ -1123,16 +1285,33 @@ def profile_decode(run, torch, model, params, ids, mask, gen, step_ms):
             _, _, logits, cache, done = step(g, params, logits, cache, done)
         torch.cuda.synchronize()
     per_name, dev_ms = _device_ms(prof, n)
-    ours = sum(v for k, v in per_name.items()
-               if any(o in k for o in OUR_KERNELS))
-    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
-    rep = dict(device_ms_per_step=dev_ms if dev_ms > 0 else "not measured",
-               port_kernels_ms_per_step=ours,
-               busy_share=(dev_ms / step_ms) if dev_ms > 0 else
-               "not measured",
-               top=[(k[:60], v) for k, v in top])
+    rep = {"eager": dict(_profile_rep(per_name, dev_ms, step_ms),
+                         device_ms_by_op=sorted(
+                             _device_ms(prof, n, ops=True)[0].items(),
+                             key=lambda kv: -kv[1])[:20])}
+    reps = max(trace["replays"], 1)
+    per_name = {k: v / 1e6 / reps for k, v in trace["replay_ns"].items()}
+    span_ms = trace["replay_span_ns"] / 1e6 / reps
+    rep["graph_replay"] = dict(
+        _profile_rep(per_name, sum(per_name.values()), graph_step_ms),
+        replays=trace["replays"], replay_span_ms_per_step=span_ms,
+        busy_share_of_span=(sum(per_name.values()) / span_ms) if span_ms
+        else "not measured")
     run.report["decode_profile"] = rep
     print("   decode profile " + json.dumps(rep), flush=True)
+
+
+def _profile_rep(per_name, dev_ms, step_ms):
+    ours = {o: sum(v for k, v in per_name.items() if o in k)
+            for o in OUR_KERNELS}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:8]
+    return dict(device_ms_per_step=dev_ms if dev_ms > 0 else "not measured",
+                port_kernels_ms_per_step=sum(ours.values()),
+                port_kernels={k: v for k, v in ours.items() if v},
+                wall_ms_per_step=step_ms,
+                busy_share=(dev_ms / step_ms) if dev_ms > 0 else
+                "not measured",
+                top=[(k[:60], v) for k, v in top])
 
 
 # ------------------------------------------------------------------- train

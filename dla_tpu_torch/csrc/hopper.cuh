@@ -36,6 +36,17 @@
 // {d[8kk], d[8kk+1]}, {d[8kk+2], d[8kk+3]}, {d[8kk+4], d[8kk+5]},
 // {d[8kk+6], d[8kk+7]}, each pair rounded to bf16x2.
 //
+// A [rows, 64] int8 box (64-byte rows, the int8 decode matmul's weights)
+// is read with CU_TENSOR_MAP_SWIZZLE_64B: the 16-byte chunk c of row r
+// lands at chunk c ^ ((r >> 1) & 3), so the 8 rows an ldmatrix phase
+// reads fall on 8 different bank groups.
+//
+// Clusters. cluster_sync() is a barrier over every thread of every block
+// of the cluster (release / acquire: shared-memory writes before it are
+// visible to the cluster after it); map_rank() turns a shared address of
+// this block into the same offset in block `rank` of the cluster, read
+// with ld_cluster_*().
+//
 // Host side: make_tile_map() (4-d head views) and make_matrix_map()
 // (2-d matrices) encode a CUtensorMap with cuTensorMapEncodeTiled,
 // found through cudaGetDriverEntryPoint(ByVersion) so the library links
@@ -133,6 +144,34 @@ __device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
                "l"(src)
                : "memory");
+}
+
+// 16 bytes global -> shared (cp.async, L2 only); `bytes` < 16 reads that
+// many and zero-fills the rest (0: reads nothing, writes zeros).
+// cp_async_commit closes this thread's group of copies; cp_async_wait<N>
+// waits until at most N of its groups are still in flight.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+// 4 bytes, zero-filled when `bytes` is 0
+__device__ __forceinline__ void cp_async4z(uint32_t dst, const void* src,
+                                           uint32_t bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 __device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
@@ -284,6 +323,57 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TB));
 }
 
+// -------------------------------------------------------------- clusters
+
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::
+          : "memory");
+}
+
+__device__ __forceinline__ uint32_t map_rank(uint32_t addr, int rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(out)
+               : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n"
+               : "=f"(v)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+__device__ __forceinline__ float4 ld_cluster_f4(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
+// ------------------------------------------- programmatic dependent launch
+
+// Lets the next kernel of the stream, when it was launched with
+// programmatic stream serialization, start once every block of this grid
+// has issued this (it then waits in grid_dep_wait before touching memory
+// this grid or an earlier one writes).
+__device__ __forceinline__ void grid_dep_launch() {
+  asm volatile("griddepcontrol.launch_dependents;\n" ::: "memory");
+}
+
+// Waits until the grids this one depends on have completed and their
+// writes are visible; returns at once when there are none.
+__device__ __forceinline__ void grid_dep_wait() {
+  asm volatile("griddepcontrol.wait;\n" ::: "memory");
+}
+
 // ------------------------------------------------------------ registers
 
 template <int N>
@@ -343,7 +433,8 @@ constexpr int kMapError = 10000;
 // (PyTorch's autograd worker, say) lacks: encode_map binds it first.
 inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
                       const void* ptr, const cuuint64_t* dims,
-                      const cuuint64_t* strides, const cuuint32_t* box) {
+                      const cuuint64_t* strides, const cuuint32_t* box,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return kMapError + (int)CUDA_ERROR_NOT_FOUND;
   int device = 0;
@@ -353,8 +444,7 @@ inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
   const cuuint32_t elem[4] = {1, 1, 1, 1};
   const CUresult r = fn(map, type, (cuuint32_t)rank, const_cast<void*>(ptr),
                         dims, strides, box, elem,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B,
+                        CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : kMapError + (int)r;
@@ -379,17 +469,19 @@ inline int make_tile_map(CUtensorMap* map, const void* ptr, int cols,
 // Map of a row-major [rows, cols] matrix of `elem_bytes`-byte elements
 // (2: bf16, 1: int8; row pitch cols * elem_bytes, a multiple of 16),
 // read in boxes of [box_rows, box_cols] with 128-byte rows (64 bf16 or
-// 128 int8 columns), 128-byte swizzled.
-inline int make_matrix_map(CUtensorMap* map, const void* ptr, int rows,
-                           int cols, int elem_bytes, int box_rows,
-                           int box_cols) {
+// 128 int8 columns), 128-byte swizzled — or, with SWIZZLE_64B, 64-byte
+// rows (64 int8 columns).
+inline int make_matrix_map(
+    CUtensorMap* map, const void* ptr, int rows, int cols, int elem_bytes,
+    int box_rows, int box_cols,
+    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
   const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
   const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
   return encode_map(map,
                     elem_bytes == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                     : CU_TENSOR_MAP_DATA_TYPE_UINT8,
-                    2, ptr, dims, strides, box);
+                    2, ptr, dims, strides, box, swizzle);
 }
 
 }  // namespace hopper

@@ -12,7 +12,7 @@
 // Two kernels; the wrapper (ops/quant_matmul.py `plan`) picks one from
 // (M, N, K):
 //
-// int8_mm_tma_kernel (M >= 128, prefill). Hopper design (hopper.cuh):
+// int8_mm_tma_kernel (M > 64: prefill). Hopper design (hopper.cuh):
 //  - One block per 128 x 256 output tile, output tiles walked in groups
 //    of 8 M tiles so that the blocks on the card at one time share their
 //    x and w tiles in L2.
@@ -35,160 +35,43 @@
 //    once to bf16 — the casts of int8_matmul_plain. No atomics: one
 //    thread owns each output and sums K in a fixed order.
 //
-// int8_mm_kernel (M < 128, decode), the first version of the port: one
-// block per (64-row M tile, 64-column N tile, K split), looping over K
-// in 64-deep tiles. Each K tile of w is read from HBM once per M tile
-// (at decode: once), as 16-byte vector loads into registers one tile
-// ahead of the compute, converted int8 -> bf16 on its way into shared
-// memory, and multiplied with mma.sync bf16 products into fp32
-// accumulators; the per-channel fp32 scale multiplies the fp32 product
-// before the single bf16 rounding. When M and N give too few tiles to
-// occupy the card (decode projections), K is split across blocks: each
-// split writes an fp32 partial and a second small kernel sums the splits
-// in a fixed order (deterministic), scales and rounds. No tensor maps on
-// this path: decode calls it 225 times a step.
+// int8_mm_decode_kernel (M <= 64, decode). The rollout's decode step
+// calls it 225 times at M = 64, where each weight byte meets 64 rows
+// (~128 operations a byte): the int8 weight bytes bound it. Design:
+//  - The product is computed transposed as in the TMA kernel: out^T =
+//    w^T x^T, w^T the RS wgmma's register operand (converted exactly
+//    from int8 by the same byte-permute route), the batch (M <= 64) the
+//    wgmma's N, x the K-major B tile. 64 < M < 128 takes the TMA kernel,
+//    which reads the rows past M as zeros.
+//  - A block owns 64 * CW output columns: CW consumer warpgroups of 64
+//    columns each and one producer warp, which keeps a 6-stage TMA ring
+//    of {x tile [64, 64] bf16, 128-byte swizzled; CW w boxes [64 k, 64
+//    n] int8, 64-byte swizzled} full. Each consumer converts the next
+//    stage's w fragments while this stage's products run.
+//  - When the output tiles alone cannot fill the card (every projection
+//    but lm_head), K is split across the blocks of a thread-block
+//    cluster (grid y = cluster y = splits, each block a contiguous run of
+//    64-deep K tiles). After the loop each block parks its fp32 partial
+//    tile in its own shared memory, and each block of the cluster sums
+//    one slice of the tile over the cluster's blocks in rank order,
+//    through distributed shared memory, then scales and rounds once. One
+//    launch, no partial tile in HBM, no second kernel, no atomics, and
+//    the sum's order is fixed.
+//  - The wrapper's planner picks the columns per block (128, or 64 with
+//    clusters of up to 16 for narrow N) and the splits so that every
+//    call of the step puts a block on every SM, splitting K at most 4
+//    ways at 128 columns (each doubling of the cluster costs its
+//    reduction more than the wider block saves).
+//  - Launched with programmatic stream serialization: a block requests
+//    its first stages' weights (which no kernel writes) before waiting
+//    for the previous kernel of the stream, so the step's back-to-back
+//    projections overlap one's tail with the next one's first loads.
 #include "common.cuh"
 #include "hopper.cuh"
 
 namespace {
 
 using dla::bf16;
-
-constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128;
-constexpr int XS = BK + 8;  // shared row stride (bf16) of the x tile [BM][BK]
-constexpr int WS = BN + 8;  // shared row stride (bf16) of the w tile [BK][BN]
-
-__global__ void __launch_bounds__(THREADS)
-int8_mm_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ w,
-               const float* __restrict__ scale, bf16* __restrict__ out,
-               float* __restrict__ partial, int M, int N, int K,
-               int tiles_per_split) {
-  __shared__ __align__(16) bf16 xs[BM * XS];
-  __shared__ __align__(16) bf16 ws[BK * WS];
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int gid = lane / 4, tig = lane % 4;
-  const int m0 = blockIdx.y * BM, n0 = blockIdx.x * BN;
-  const int k_tiles = (K + BK - 1) / BK;
-  const int kt_begin = blockIdx.z * tiles_per_split;
-  const int kt_end = min(k_tiles, kt_begin + tiles_per_split);
-  const int wm = (warp / 2) * 32, wn = (warp % 2) * 32;  // warp's 32x32 tile
-
-  float acc[2][4][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-
-  // one K tile: x 64x64 bf16 = 512 16-byte chunks (4 per thread),
-  // w 64x64 int8 = 256 chunks (2 per thread); K % 8 == 0 and N % 16 == 0
-  // (checked by the wrapper) make every chunk wholly in or out of bounds
-  uint4 xr[4], wr[2];
-  auto load_tile = [&](int kt) {
-    const int k0 = kt * BK;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / 8, cc = (c % 8) * 8;
-      const int gm = m0 + r, gk = k0 + cc;
-      xr[i] = (gm < M && gk < K)
-                  ? *reinterpret_cast<const uint4*>(x + (size_t)gm * K + gk)
-                  : make_uint4(0, 0, 0, 0);
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / 4, cc = (c % 4) * 16;
-      const int gk = k0 + r, gn = n0 + cc;
-      wr[i] = (gk < K && gn < N)
-                  ? *reinterpret_cast<const uint4*>(w + (size_t)gk * N + gn)
-                  : make_uint4(0, 0, 0, 0);
-    }
-  };
-  auto store_tile = [&]() {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / 8, cc = (c % 8) * 8;
-      *reinterpret_cast<uint4*>(&xs[r * XS + cc]) = xr[i];
-    }
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = tid + i * THREADS;
-      const int r = c / 4, cc = (c % 4) * 16;
-      const int8_t* v = reinterpret_cast<const int8_t*>(&wr[i]);
-      uint32_t packed[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-        packed[j] = dla::pack_bf16((float)v[2 * j], (float)v[2 * j + 1]);
-      uint4* dst = reinterpret_cast<uint4*>(&ws[r * WS + cc]);
-      dst[0] = make_uint4(packed[0], packed[1], packed[2], packed[3]);
-      dst[1] = make_uint4(packed[4], packed[5], packed[6], packed[7]);
-    }
-  };
-
-  if (kt_begin < kt_end) load_tile(kt_begin);
-  for (int kt = kt_begin; kt < kt_end; ++kt) {
-    __syncthreads();  // the previous tile's products have read smem
-    store_tile();
-    __syncthreads();
-    if (kt + 1 < kt_end) load_tile(kt + 1);  // in flight during the products
-#pragma unroll
-    for (int kk = 0; kk < BK / 16; ++kk) {
-      uint32_t a[2][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        const bf16* p = &xs[(wm + mt * 16 + gid) * XS + kk * 16 + tig * 2];
-        a[mt][0] = dla::ld32(p);
-        a[mt][1] = dla::ld32(p + 8 * XS);
-        a[mt][2] = dla::ld32(p + 8);
-        a[mt][3] = dla::ld32(p + 8 * XS + 8);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const bf16* p = &ws[(kk * 16 + tig * 2) * WS + wn + nt * 8 + gid];
-        const uint32_t b0 = dla::pack_raw(p[0], p[WS]);
-        const uint32_t b1 = dla::pack_raw(p[8 * WS], p[9 * WS]);
-#pragma unroll
-        for (int mt = 0; mt < 2; ++mt) dla::mma_16816(acc[mt][nt], a[mt], b0, b1);
-      }
-    }
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < 4; ++nt)
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mt * 16 + gid + half * 8;
-        const int col = n0 + wn + nt * 8 + tig * 2;
-        if (row >= M || col >= N) continue;
-        const float v0 = acc[mt][nt][2 * half], v1 = acc[mt][nt][2 * half + 1];
-        if (gridDim.z == 1) {
-          *reinterpret_cast<uint32_t*>(&out[(size_t)row * N + col]) =
-              dla::pack_bf16(v0 * scale[col], v1 * scale[col + 1]);
-        } else {
-          float* dst = partial + ((size_t)blockIdx.z * M + row) * N + col;
-          *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
-        }
-      }
-}
-
-// sum the K splits in split order, scale per channel, round to bf16
-__global__ void int8_mm_finalize(const float* __restrict__ partial,
-                                 const float* __restrict__ scale,
-                                 bf16* __restrict__ out, int M, int N,
-                                 int splits) {
-  const size_t total = (size_t)M * N;
-  for (size_t i = blockIdx.x * (size_t)blockDim.x + threadIdx.x; i < total;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int z = 0; z < splits; ++z) s += partial[z * total + i];
-    out[i] = __float2bfloat16_rn(s * scale[i % N]);
-  }
-}
 
 // ------------------------------------------------------- int8_mm_tma_kernel
 
@@ -390,34 +273,292 @@ int8_mm_tma_kernel(const __grid_constant__ CUtensorMap tx,
   }
 }
 
-}  // namespace
+// ---------------------------------------------------- int8_mm_decode_kernel
 
-// M < 128 (decode): the split-K kernel; `partial` is [splits, M, N] fp32
-// scratch when splits > 1. Returns a cudaError_t.
-extern "C" int dla_int8_matmul(const void* x, const void* w, const void* scale,
-                               void* out, void* partial, int M, int N, int K,
-                               int splits, void* stream) {
-  const int k_tiles = (K + BK - 1) / BK;
-  const int per_split = (k_tiles + splits - 1) / splits;
-  splits = (k_tiles + per_split - 1) / per_split;  // no empty splits
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  dim3 grid((N + BN - 1) / BN, (M + BM - 1) / BM, splits);
-  int8_mm_kernel<<<grid, THREADS, 0, s>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(w),
-      static_cast<const float*>(scale), static_cast<bf16*>(out),
-      static_cast<float*>(partial), M, N, K, per_split);
-  if (splits > 1) {
-    const size_t total = (size_t)M * N;
-    const size_t need = (total + 255) / 256;
-    const int blocks = need > 4096 ? 4096 : (int)need;
-    int8_mm_finalize<<<blocks, 256, 0, s>>>(
-        static_cast<const float*>(partial), static_cast<const float*>(scale),
-        static_cast<bf16*>(out), M, N, splits);
+constexpr int DBK = 64;      // K depth of a ring stage
+constexpr int DCOLS = 64;    // output columns of a consumer (one w box)
+constexpr int DSTAGES = 6;
+constexpr int MB = 64;       // x rows of a block: the wgmma's N
+
+template <int CW>
+struct Dec {
+  static constexpr int THREADS = 128 * CW + 32;  // consumers + producer warp
+  static constexpr int TN = DCOLS * CW;          // output columns of a block
+  static constexpr int XT = MB * DBK * 2;        // x tile, bf16, 128B swizzle
+  static constexpr int WBOX = DBK * DCOLS;       // w box, int8, 64B swizzle
+  static constexpr int STAGE = XT + CW * WBOX;
+  static constexpr int RING = DSTAGES * STAGE;
+  static constexpr int LD = TN + 4;              // fp32 row pitch, sum tile
+  static constexpr int SUM = MB * LD * 4;        // [MB, TN] fp32 partial
+  static constexpr int BAR = RING > SUM ? RING : SUM;
+  static constexpr int SMEM = BAR + 2 * DSTAGES * 8 + 1024;
+  // blocks an SM holds at once (shared memory and registers)
+  static constexpr int MIN_BLOCKS = CW == 1 ? 3 : 2;
+};
+
+// The A fragments (w^T, bf16) of one stage for this warp: fr[kk] is
+// k-step kk of the warp's 16 output columns; as in load_w_frags,
+// fragment row g (< 8) is column 2 g of those 16 and row g + 8 column
+// 2 g + 1. The box is [64 k, 64 n] int8 with 64-byte rows, 64-byte
+// swizzled: the warp's 16 columns are 16-byte chunk `warp` of a row,
+// stored at chunk warp ^ ((k >> 1) & 3).
+__device__ __forceinline__ void load_w_frags_64(uint32_t (&fr)[4][4],
+                                                uint32_t wt, int warp,
+                                                int lane) {
+  const int j = lane >> 3, i = lane & 7;
+#pragma unroll
+  for (int p = 0; p < 2; ++p) {
+    const int kr = 16 * (2 * p + (j >> 1)) + 8 * (j & 1) + i;
+    const uint32_t addr = wt + kr * 64 + ((warp ^ ((kr >> 1) & 3)) << 4);
+    uint32_t r[4];
+    hp::ldsm_x4_trans(r, addr);
+    int8_kpairs(r[0], fr[2 * p][0], fr[2 * p][1]);
+    int8_kpairs(r[1], fr[2 * p][2], fr[2 * p][3]);
+    int8_kpairs(r[2], fr[2 * p + 1][0], fr[2 * p + 1][1]);
+    int8_kpairs(r[3], fr[2 * p + 1][2], fr[2 * p + 1][3]);
   }
-  return (int)cudaGetLastError();
 }
 
-// M >= 128: the TMA + wgmma kernel at 128 x 256 output tiles. Returns a
+template <int CW>
+__global__ void __launch_bounds__(Dec<CW>::THREADS, Dec<CW>::MIN_BLOCKS)
+int8_mm_decode_kernel(const __grid_constant__ CUtensorMap tx,
+                      const __grid_constant__ CUtensorMap tw,
+                      const float* __restrict__ scale,
+                      bf16* __restrict__ out, int M, int N, int K) {
+  using C = Dec<CW>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_base(smem_raw);
+  const uint32_t base = hp::smem_addr(smem);
+  const uint32_t full = base + C::BAR, empty = full + 8 * DSTAGES;
+  const int n0 = blockIdx.x * C::TN;
+  const int splits = gridDim.y, split = blockIdx.y;  // cluster rank = split
+  const int k_tiles = (K + DBK - 1) / DBK;
+  const int kt0 = split * k_tiles / splits;
+  const int nk = (split + 1) * k_tiles / splits - kt0;
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  hp::grid_dep_launch();  // the next kernel may start loading its weights
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < DSTAGES; ++s) {
+      hp::mbar_init(full + 8 * s, 1);        // the producer's expect_tx
+      hp::mbar_init(empty + 8 * s, 4 * CW);  // the consumers' warps
+    }
+    hp::fence_barrier_init();
+  }
+  __syncthreads();
+
+  float acc[MB / 2];
+#pragma unroll
+  for (int i = 0; i < MB / 2; ++i) acc[i] = 0.f;
+  const int cw = warp_id / 4, warp = warp_id % 4;
+  const int gid = lane / 4, tig = lane % 4;
+
+  if (warp_id == 4 * CW) {  // --------------------------------- producer
+    if (lane == 0 && nk > 0) {
+      hp::prefetch_map(&tx);
+      hp::prefetch_map(&tw);
+      // The first stages' weights do not depend on earlier kernels: they
+      // are requested before the wait for the grid this one follows (a
+      // launch with programmatic stream serialization starts while that
+      // grid still runs), x only after it.
+      const int first = nk < DSTAGES ? nk : DSTAGES;
+      for (int t = 0; t < first; ++t) {
+        const uint32_t st = base + t * C::STAGE, bar = full + 8 * t;
+        hp::mbar_arrive_expect_tx(bar, C::STAGE);
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          hp::tma_load_2d(st + C::XT + c * C::WBOX, &tw, bar,
+                          n0 + DCOLS * c, (kt0 + t) * DBK);
+      }
+      hp::grid_dep_wait();
+      for (int t = 0; t < first; ++t)
+        hp::tma_load_2d(base + t * C::STAGE, &tx, full + 8 * t,
+                        (kt0 + t) * DBK, 0);
+      int stage = first == DSTAGES ? 0 : first;
+      uint32_t phase = first == DSTAGES ? 1 : 0;
+      for (int t = first; t < nk; ++t) {
+        const int k0 = (kt0 + t) * DBK;
+        hp::mbar_wait(empty + 8 * stage, phase ^ 1);
+        const uint32_t st = base + stage * C::STAGE, bar = full + 8 * stage;
+        hp::mbar_arrive_expect_tx(bar, C::STAGE);
+        hp::tma_load_2d(st, &tx, bar, k0, 0);
+#pragma unroll
+        for (int c = 0; c < CW; ++c)
+          hp::tma_load_2d(st + C::XT + c * C::WBOX, &tw, bar,
+                          n0 + DCOLS * c, k0);
+        if (++stage == DSTAGES) stage = 0, phase ^= 1;
+      }
+    }
+    __syncwarp();
+  } else if (nk > 0) {  // -------------------------------------- consumers
+    // stage t's products are issued from fragments `cur`; stage t + 1's
+    // w tile is converted into `nxt` while they run (two steps a turn,
+    // so both fragment sets stay in registers)
+    int stage = 0;
+    uint32_t phase = 0;
+    uint32_t fa[4][4], fb[4][4];
+    const uint32_t wofs = C::XT + cw * C::WBOX;
+    hp::mbar_wait(full, 0);
+    load_w_frags_64(fa, base + wofs, warp, lane);
+    auto step = [&](uint32_t (&cur)[4][4], uint32_t (&nxt)[4][4], int t) {
+      const uint32_t st = base + stage * C::STAGE;
+      hp::fence_regs(acc);
+      hp::fence_regs(cur);
+      hp::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DBK / 16; ++kk)
+        hp::wgmma_rs_n64<0>(acc, cur[kk],
+                            hp::desc_sw128(st + kk * 32, 16, 1024), 1);
+      hp::wgmma_commit();
+      int next = stage + 1;
+      uint32_t next_phase = phase;
+      if (next == DSTAGES) next = 0, next_phase ^= 1;
+      if (t + 1 < nk) {
+        hp::mbar_wait(full + 8 * next, next_phase);
+        load_w_frags_64(nxt, base + next * C::STAGE + wofs, warp, lane);
+      }
+      hp::wgmma_wait<0>();
+      hp::fence_regs(cur);
+      hp::fence_regs(acc);
+      if (lane == 0) hp::mbar_arrive(empty + 8 * stage);
+      stage = next, phase = next_phase;
+    };
+    for (int t = 0; t < nk; t += 2) {
+      step(fa, fb, t);
+      if (t + 1 < nk) step(fb, fa, t + 1);
+    }
+  }
+
+  // The accumulator: d[i] is output column n (w^T row 16 warp + gid +
+  // 8 ((i >> 1) & 1), i.e. column 16 warp + 2 gid + ((i >> 1) & 1) of
+  // this consumer's 64) and output row m = 8 (i >> 2) + 2 tig + (i & 1).
+  const int nl = DCOLS * cw + 16 * warp + 2 * gid;  // column in the block
+  hp::grid_dep_wait();  // earlier kernels are done with the output's memory
+  if (splits == 1) {  // no cluster: scale, round, store from registers
+    const int n = n0 + nl;
+    if (warp_id < 4 * CW && n < N) {  // N % 16 == 0: n + 1 < N as well
+      const float s0 = scale[n], s1 = scale[n + 1];
+#pragma unroll
+      for (int nb = 0; nb < MB / 8; ++nb)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int m = nb * 8 + tig * 2 + e;
+          if (m < M)
+            *reinterpret_cast<uint32_t*>(&out[(size_t)m * N + n]) =
+                dla::pack_bf16(acc[nb * 4 + e] * s0, acc[nb * 4 + 2 + e] * s1);
+        }
+    }
+    return;
+  }
+
+  // Split K: park the partial tile [MB, TN] in this block's shared memory
+  // (over the drained ring), then sum slice `split` of the tile over the
+  // cluster's blocks in rank order 0, 1, ..., scale and round once.
+  __syncthreads();  // every product of this block is done: the ring is free
+  float* part = reinterpret_cast<float*>(smem);
+  if (warp_id < 4 * CW) {
+#pragma unroll
+    for (int nb = 0; nb < MB / 8; ++nb)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int m = nb * 8 + tig * 2 + e;
+        *reinterpret_cast<float2*>(&part[m * C::LD + nl]) =
+            make_float2(acc[nb * 4 + e], acc[nb * 4 + 2 + e]);
+      }
+  }
+  hp::cluster_sync();
+  constexpr int QUADS = MB * C::TN / 4;   // float4 groups of the tile
+  const int q0 = split * QUADS / splits, q1 = (split + 1) * QUADS / splits;
+  for (int q = q0 + threadIdx.x; q < q1; q += C::THREADS) {
+    const int m = q / (C::TN / 4), nq = (q % (C::TN / 4)) * 4;
+    const int n = n0 + nq;
+    if (m >= M || n >= N) continue;  // N % 16 == 0: all four or none
+    const uint32_t off = base + (uint32_t)(m * C::LD + nq) * 4;
+    // every rank's load in flight before the first sum
+    float4 v[16];
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < splits) v[r] = hp::ld_cluster_f4(hp::map_rank(off, r));
+    float4 sum = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int r = 0; r < 16; ++r)
+      if (r < splits)
+        sum.x += v[r].x, sum.y += v[r].y, sum.z += v[r].z, sum.w += v[r].w;
+    const float4 sc = *reinterpret_cast<const float4*>(scale + n);
+    *reinterpret_cast<uint2*>(&out[(size_t)m * N + n]) =
+        make_uint2(dla::pack_bf16(sum.x * sc.x, sum.y * sc.y),
+                   dla::pack_bf16(sum.z * sc.z, sum.w * sc.w));
+  }
+  hp::cluster_sync();  // no block leaves while the others read its tile
+}
+
+template <int CW>
+int launch_decode(const void* x, const void* w, const float* scale, bf16* out,
+                  int M, int N, int K, int splits, cudaStream_t stream) {
+  using C = Dec<CW>;
+  CUtensorMap tx, tw;
+  int err = hp::make_matrix_map(&tx, x, M, K, 2, MB, DBK);
+  if (!err)
+    err = hp::make_matrix_map(&tw, w, K, N, 1, DBK, DCOLS,
+                              CU_TENSOR_MAP_SWIZZLE_64B);
+  if (err) return err;
+  auto kernel = int8_mm_decode_kernel<CW>;
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       C::SMEM);
+  if (splits > 8)
+    cudaFuncSetAttribute(kernel,
+                         cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((N + C::TN - 1) / C::TN, splits, 1);
+  cfg.blockDim = dim3(C::THREADS, 1, 1);
+  cfg.dynamicSmemBytes = C::SMEM;
+  cfg.stream = stream;
+  // programmatic stream serialization: the kernel may start while the
+  // stream's previous kernel finishes (it waits in grid_dep_wait)
+  cudaLaunchAttribute attr[2];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  attr[1].id = cudaLaunchAttributeClusterDimension;
+  attr[1].val.clusterDim.x = 1;
+  attr[1].val.clusterDim.y = splits;
+  attr[1].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = splits > 1 ? 2 : 1;
+  const cudaError_t e = cudaLaunchKernelEx(&cfg, kernel, tx, tw, scale, out,
+                                           M, N, K);
+  return e != cudaSuccess ? (int)e : (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// M <= 64 (decode): the cluster split-K kernel with `tile_n` (64 or 128)
+// output columns per block and `splits` (1, 2, 4, 8 or 16; at most the
+// 64-deep K tiles) K splits, one cluster of `splits` blocks per column
+// tile. Returns a cudaError_t, or hopper::kMapError + a CUresult when a
+// tensor map cannot be encoded.
+extern "C" int dla_int8_matmul_decode(const void* x, const void* w,
+                                      const void* scale, void* out, int M,
+                                      int N, int K, int tile_n, int splits,
+                                      void* stream) {
+  const int k_tiles = (K + DBK - 1) / DBK;
+  if (M < 1 || M > MB || splits < 1 || splits > 16 ||
+      (splits & (splits - 1)) || splits > k_tiles)
+    return (int)cudaErrorInvalidValue;
+  const float* sc = static_cast<const float*>(scale);
+  bf16* o = static_cast<bf16*>(out);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (tile_n == 128 && splits <= 8)
+    return launch_decode<2>(x, w, sc, o, M, N, K, splits, s);
+  if (tile_n == 64) return launch_decode<1>(x, w, sc, o, M, N, K, splits, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// dynamic shared memory per block of the decode kernel, by tile_n
+extern "C" int dla_int8_matmul_decode_smem_bytes(int tile_n) {
+  return tile_n == 128 ? Dec<2>::SMEM : Dec<1>::SMEM;
+}
+
+// M > 64: the TMA + wgmma kernel at 128 x 256 output tiles. Returns a
 // cudaError_t, or hopper::kMapError + a CUresult when a tensor map cannot
 // be encoded.
 extern "C" int dla_int8_matmul_tma(const void* x, const void* w,

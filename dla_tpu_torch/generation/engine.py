@@ -10,6 +10,16 @@ mask, so outputs equal the fixed-length schedule's. The JAX package's
 chunked early-exit schedule only changes the loop's shape, so
 ``early_exit_chunk`` takes the same per-step loop here.
 
+On the card the decode loop runs as one CUDA graph per generate call,
+the port's counterpart of the JAX package's jitted ``lax.scan`` /
+``while_loop``: the first step runs eagerly (real work, and the warm-up
+a capture needs), the step (sampling, ``decode_step``, the chosen
+token's logprob, the writes of the step's outputs at a device step
+counter) is captured once and replayed for the remaining steps. With an
+EOS the host checks ``done`` between replays. The graph draws from the
+caller's generator (registered with it), so its tokens equal the eager
+loop's from the same seed. CPU tensors run the eager loop.
+
 Sampling draws from an explicit ``torch.Generator``; the per-request
 seeded mode (``per_request_seeds``, threefry ``fold_in``) is not ported
 yet and raises.
@@ -88,10 +98,10 @@ def _expand(cache: Dict[str, Any], group: int) -> Dict[str, Any]:
     """Repeat each prompt's prefill state ``group`` times along the batch:
     KV [L, B, S, KH, D] and scales [L, B, KH, S] carry batch at axis 1,
     per-row metadata (valid/pos [B, S], lengths [B]) at axis 0; host ints
-    are batch-free."""
+    and the 0-dim device column are batch-free."""
     out = {}
     for key, leaf in cache.items():
-        if not torch.is_tensor(leaf):
+        if not torch.is_tensor(leaf) or leaf.ndim == 0:
             out[key] = leaf
         elif leaf.ndim >= 4:
             out[key] = torch.repeat_interleave(leaf, group, dim=1)
@@ -142,15 +152,32 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
                           device=dev)
         emits = torch.zeros((n, b), dtype=torch.bool, device=dev)
         lps = torch.zeros((n, b), dtype=torch.float32, device=dev)
-        for step in range(n):
-            if eos >= 0 and bool(done.all()):
-                break   # every row finished: the rest stays pad / 0
+        # logits, done and the step counter `at` are carried from step to
+        # step in place
+        at = torch.zeros((1,), dtype=torch.int64, device=dev)
+
+        def body():
+            """One step; every tensor it carries to the next step is
+            updated in place (what a graph replay needs)."""
             prev = logits.float()
-            tok, emit_mask, logits, cache, done = single_step(
+            tok, emit_mask, new_logits, _, new_done = single_step(
                 generator, params, logits, cache, done)
             logp = torch.log_softmax(prev, dim=-1).gather(
                 1, tok[:, None].long())[:, 0]
-            toks[step], emits[step], lps[step] = tok, emit_mask, logp
+            toks.index_copy_(0, at, tok[None])
+            emits.index_copy_(0, at, emit_mask[None])
+            lps.index_copy_(0, at, logp[None])
+            logits.copy_(new_logits)
+            done.copy_(new_done)
+            at.add_(1)
+
+        if dev.type == "cuda" and n > 0:
+            _decode_graphed(body, done, n, eos >= 0, generator, dev)
+        else:
+            for _ in range(n):
+                if eos >= 0 and bool(done.all()):
+                    break   # every row finished: the rest stays pad / 0
+                body()
 
         response_tokens = toks.T.contiguous()                  # [B, N]
         response_mask = emits.T.to(torch.int32).contiguous()   # [B, N]
@@ -170,6 +197,33 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
         }
 
     return generate
+
+
+def _decode_graphed(body, done: torch.Tensor, n: int, check_eos: bool,
+                    generator: torch.Generator, dev: torch.device) -> None:
+    """Run ``body`` (one decode step, state updated in place) ``n`` times
+    on the card: step 1 eagerly, on the stream the capture uses (it is
+    the warm-up too), then the step captured once as a CUDA graph and
+    replayed for steps 2..n; with ``check_eos`` the host stops once
+    every row is done, as the eager loop does. The kernel wrappers count
+    the step's launches once, at the capture; the replays run them with
+    no Python. A capture that fails raises."""
+    stream = torch.cuda.Stream(dev)
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        body()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    if n == 1 or (check_eos and bool(done.all())):
+        return
+    graph = torch.cuda.CUDAGraph()
+    graph.register_generator_state(generator)
+    with torch.cuda.graph(graph, stream=stream):
+        body()
+    for _ in range(n - 1):
+        if check_eos and bool(done.all()):
+            break
+        graph.replay()
+    del graph
 
 
 class GenerationEngine:

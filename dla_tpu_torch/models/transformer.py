@@ -32,7 +32,10 @@ einsum attention (``chunked_causal_attention`` is not ported).
 Difference in mutation: ``decode_step`` writes the new KV column into
 the cache tensors in place and returns the same dict (the JAX version
 returns a new cache that XLA aliases); at 8B scale a cache copy per step
-would move ~1.6 GB.
+would move ~1.6 GB. Every tensor of the cache is updated in place, and
+the write column lives on the device (``cache["col"]``), so the step
+reads no host state that changes from step to step and a CUDA graph of
+it replays correctly (``generation.engine.build_generate_fn``).
 """
 from __future__ import annotations
 
@@ -422,8 +425,9 @@ class Transformer(nn.Module):
                    device: torch.device) -> Params:
         """Zero-filled contiguous cache: k/v [L, B, S, K, D] (int8 or the
         activation dtype), int8 scales K-major [L, B, K, S] fp32,
-        valid [B, S], lengths [B] (next position per row) and the host
-        int ``step`` (decode steps taken)."""
+        valid [B, S], lengths [B] (next position per row), the host int
+        ``step`` (decode steps taken) and ``col``, the column the next
+        decode step writes, as a 0-dim int32 tensor on the device."""
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim_)
@@ -436,6 +440,7 @@ class Transformer(nn.Module):
             "lengths": torch.zeros((batch,), dtype=torch.int32,
                                    device=device),
             "step": 0,
+            "col": torch.zeros((), dtype=torch.int32, device=device),
         }
         if self._kv_int8:
             sshape = (cfg.num_layers, batch, cfg.num_kv_heads, max_len)
@@ -514,6 +519,7 @@ class Transformer(nn.Module):
         logits, cache = self.prefill(params, cache0, input_ids,
                                      attention_mask)
         cache["prompt_width"] = t
+        cache["col"].fill_(t)
         cache["pos"] = torch.arange(
             max_len, dtype=torch.int32,
             device=input_ids.device)[None, :].repeat(b, 1)
@@ -544,16 +550,20 @@ class Transformer(nn.Module):
         """One decode step: write ``tokens`` at column prompt_T + step,
         return logits for the next token. Rotary and causality use each
         row's logical position (pads skipped via the valid mask). The
-        cache is updated in place and returned."""
+        cache is updated in place and returned. The column is read from
+        ``cache["col"]`` on the device (the host int ``step`` serves the
+        cache-full check only), and the step makes no host
+        synchronisation, so it can be captured in a CUDA graph."""
         cfg = self.cfg
         if "prompt_width" not in cache:
             raise ValueError(
                 "decode_step requires a cache produced by start_decode()")
         max_len = cache["k"].shape[2]
-        col = cache["prompt_width"] + cache["step"]
-        if col >= max_len:
+        if cache["prompt_width"] + cache["step"] >= max_len:
             raise ValueError(f"decode_step: cache of {max_len} columns is "
                              "full")
+        col = cache["col"]                                 # 0-dim int32
+        idx = col.reshape(1).long()                        # index_* take int64
         write_idx = cache["lengths"]                       # [B]
         positions = write_idx[:, None]                     # [B, 1]
         x = self._embed(params, tokens[:, None])
@@ -598,20 +608,22 @@ class Transformer(nn.Module):
             x, (k_new, v_new) = self._decode_layer(layer, x, cos, sin, attend)
             # this layer has attended: its column can be written now
             if self._kv_int8:
-                kq, ks_new = self._quantize_kv(k_new[:, 0])   # [B, K, D]
-                vq, vs_new = self._quantize_kv(v_new[:, 0])
-                cache["k"][i, :, col] = kq
-                cache["v"][i, :, col] = vq
-                cache["k_scale"][i, :, :, col] = ks_new
-                cache["v_scale"][i, :, :, col] = vs_new
+                kq, ks_new = self._quantize_kv(k_new)   # [B, 1, K, D]
+                vq, vs_new = self._quantize_kv(v_new)
+                cache["k"][i].index_copy_(1, idx, kq)
+                cache["v"][i].index_copy_(1, idx, vq)
+                # [B, 1, K] -> K-major [B, K, 1]
+                cache["k_scale"][i].index_copy_(2, idx, ks_new.transpose(1, 2))
+                cache["v_scale"][i].index_copy_(2, idx, vs_new.transpose(1, 2))
             else:
-                cache["k"][i, :, col] = k_new[:, 0]
-                cache["v"][i, :, col] = v_new[:, 0]
+                cache["k"][i].index_copy_(1, idx, k_new.to(cache["k"].dtype))
+                cache["v"][i].index_copy_(1, idx, v_new.to(cache["v"].dtype))
 
         h = self._final_norm(params, x)
         logits = self.unembed(params, h[:, 0])
-        cache["valid"][:, col] = True
-        cache["pos"][:, col] = write_idx
-        cache["lengths"] = write_idx + 1
+        cache["valid"].index_fill_(1, idx, True)
+        cache["pos"].index_copy_(1, idx, write_idx[:, None])
+        write_idx.add_(1)                                  # cache["lengths"]
+        col.add_(1)
         cache["step"] += 1
         return logits, cache

@@ -11,6 +11,9 @@ the CPU tests import every module without a compiler or a card.
 ``LAUNCHES`` counts, per kernel name, the calls of each wrapper that
 launched its kernel — one shared tally for the process, read and reset
 by whoever drives a run (``launch_counts`` / ``reset_launch_counts``).
+A call made while a CUDA graph is captured counts once, as it records
+its launch into the graph; the graph's replays run with no Python and
+count nothing here (a profiler's trace of the card counts them).
 """
 from __future__ import annotations
 
@@ -37,8 +40,10 @@ LAUNCHES: "collections.Counter[str]" = collections.Counter()
 
 _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 _SIGNATURES = {
-    # x, w, scale, out, partial, M, N, K, splits, stream
-    "dla_int8_matmul": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x, w, scale, out, M, N, K, tile_n, splits, stream
+    "dla_int8_matmul_decode": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # tile_n -> dynamic shared memory bytes per block
+    "dla_int8_matmul_decode_smem_bytes": [_I],
     # x, w, scale, out, M, N, K, stream
     "dla_int8_matmul_tma": [_P, _P, _P, _P, _I, _I, _I, _P],
     # -> dynamic shared memory bytes per block
@@ -63,10 +68,13 @@ _SIGNATURES = {
     "dla_flash_bwd_smem_bytes": [_I, _I],
     # -> the least status of a failed tensor-map encode
     "dla_map_error_base": [],
-    # q, kc, vc, ks, vs, kn, vn, bias, ws, out, B, S, K, G, D, bound,
-    # cache_int8, scale, softcap, out_bf16, stream
+    # q, kc, vc, ks, vs, kn, vn, bias, out, fill (device int32 or null),
+    # B, S, K, G, D, fill (host), split, cache_int8, scale, softcap,
+    # out_bf16, stream
     "dla_decode_attention": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                             _I, _I, _I, _I, _I, _F, _F, _I, _P],
+                             _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
+    # D, cache_int8 -> dynamic shared memory bytes per block
+    "dla_decode_attention_smem_bytes": [_I, _I],
 }
 
 _lock = threading.Lock()

@@ -10,15 +10,20 @@ or past it are neither read nor allowed to poison the result (they may
 hold NaN). q, k_new and v_new are rounded to bf16; the result comes back
 in v_new's dtype.
 
-On the card it launches the hand-written split-S kernel in
-``csrc/decode_attn.cu``; on CPU tensors it computes
-``flash_decode_attention_plain``, the same function with the same casts
-(cache dequantized to bf16 with an fp32 multiply, fp32 scores, softmax
-weights of cache columns rounded to bf16 before the value product).
+``kv_fill`` is a host int or a 0-dim int32 tensor on the inputs' device
+(the decode step's write column, which it keeps on the card so that a
+CUDA graph of the step reads the fill of each replay).
+
+On the card it launches the hand-written kernel in ``csrc/decode_attn.cu``
+(one launch whose grid depends on the shapes only; the kernel reads the
+fill); on CPU tensors it computes ``flash_decode_attention_plain``, the
+same function with the same casts (cache dequantized to bf16 with an
+fp32 multiply, fp32 scores, softmax weights of cache columns rounded to
+bf16 before the value product).
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 
@@ -26,8 +31,21 @@ from dla_tpu_torch.ops import _native
 
 NAME = "decode_attention"
 NEG_INF = -1e30
-_CHUNK = 64   # cache columns per block (csrc/decode_attn.cu CS)
-_GMAX = 8     # query heads per kv head the kernel holds in registers
+_GMAX = 8        # query heads per kv head (the kernel's 8-wide mma operand)
+_MAX_SPLIT = 8   # blocks per (batch, kv head) pair, one cluster
+_MIN_COLS = 64   # cache columns a split block keeps at least
+
+
+def decode_split(pairs: int, s: int, sms: int) -> int:
+    """Blocks per (batch, kv head) pair for ``pairs`` pairs over a cache
+    of ``s`` columns on a card with ``sms`` multiprocessors: 1 when the
+    pairs alone put a block on every SM, else doubled until they do, at
+    most 8 and keeping at least 64 columns a block."""
+    split = 1
+    while pairs * split < sms and \
+            split * 2 <= min(_MAX_SPLIT, -(-s // _MIN_COLS)):
+        split *= 2
+    return split
 
 
 def decode_bias(kv_valid: torch.Tensor, q_positions: torch.Tensor,
@@ -103,7 +121,7 @@ def flash_decode_attention(
     bias: Optional[torch.Tensor] = None,          # [B, S] fp32 additive
     k_scale: Optional[torch.Tensor] = None,  # [B, K, S] fp32 (int8 cache)
     v_scale: Optional[torch.Tensor] = None,
-    kv_fill: Optional[int] = None,  # host int: valid cols < fill
+    kv_fill: Union[int, torch.Tensor, None] = None,  # valid cols < fill
     softmax_scale: Optional[float] = None,
     window: Optional[int] = None,
     logit_softcap: float = 0.0,
@@ -152,7 +170,17 @@ def flash_decode_attention(
     if v_new.dtype not in (torch.bfloat16, torch.float32):
         raise ValueError(f"decode kernel returns bf16 or fp32, v_new is "
                          f"{v_new.dtype}")
-    bound = s if kv_fill is None else max(0, min(s, int(kv_fill)))
+    fill_dev, fill_host = None, s
+    if torch.is_tensor(kv_fill):
+        if kv_fill.numel() != 1 or kv_fill.dtype != torch.int32 \
+                or kv_fill.device != dev:
+            raise ValueError("flash_decode_attention: a tensor kv_fill must "
+                             "be one int32 on the inputs' device, got "
+                             f"{kv_fill.dtype} {tuple(kv_fill.shape)} on "
+                             f"{kv_fill.device}")
+        fill_dev = kv_fill.contiguous()
+    elif kv_fill is not None:
+        fill_host = max(0, min(s, int(kv_fill)))
     q3 = q.reshape(b, h, d).to(torch.bfloat16).contiguous()
     kn = k_new.reshape(b, kheads, d).to(torch.bfloat16).contiguous()
     vn = v_new.reshape(b, kheads, d).to(torch.bfloat16).contiguous()
@@ -164,19 +192,21 @@ def flash_decode_attention(
         if ks.shape != (b, kheads, s) or vs.shape != ks.shape:
             raise ValueError("flash_decode_attention: scales must be "
                              "K-major [B, K, S]")
-    nch = -(-bound // _CHUNK)
-    ws = torch.empty(max(1, b * kheads * nch * g * (d + 2)),
-                     dtype=torch.float32, device=dev)
+    for t in (k_cache, v_cache):
+        if t.data_ptr() % 16:
+            raise ValueError("flash_decode_attention: caches must be 16-byte "
+                             "aligned")
     out = torch.empty((b, h, d), dtype=v_new.dtype, device=dev)
     scale = softmax_scale if softmax_scale is not None else d ** -0.5
+    split = decode_split(b * kheads, s, _native.sm_count(dev))
     lib = _native.library()
     status = lib.dla_decode_attention(
         q3.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
         None if ks is None else ks.data_ptr(),
         None if vs is None else vs.data_ptr(),
-        kn.data_ptr(), vn.data_ptr(), bias.data_ptr(), ws.data_ptr(),
-        out.data_ptr(), b, s, kheads, g, d, bound, int(quant),
-        float(scale), float(logit_softcap),
+        kn.data_ptr(), vn.data_ptr(), bias.data_ptr(), out.data_ptr(),
+        None if fill_dev is None else fill_dev.data_ptr(), b, s, kheads, g,
+        d, fill_host, split, int(quant), float(scale), float(logit_softcap),
         int(v_new.dtype == torch.bfloat16), _native.stream_handle(dev))
     _native.check(status, NAME)
     _native.LAUNCHES[NAME] += 1

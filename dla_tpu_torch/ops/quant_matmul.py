@@ -6,12 +6,14 @@ hand-written kernel of ``csrc/int8_matmul.cu`` (the counterpart of
 ``dla_tpu.ops.quant_matmul``'s Pallas kernel), which reads the int8
 bytes and converts them on chip, so a decode step's weight traffic is
 the int8 bytes and nothing else. ``plan`` picks the kernel from the
-shape: M >= 128 (prefill) the TMA + wgmma kernel at 128 x 256 output
-tiles; smaller M (decode) the split-K mma.sync kernel,
-which needs no tensor maps. On CPU tensors it computes
-``int8_matmul_plain``: the same function with the same casts (x -> bf16,
-w -> bf16 exactly, fp32 accumulation, fp32 scale on the product, one
-bf16 rounding).
+shape: M > 64 (prefill) the TMA + wgmma kernel at 128 x 256 output
+tiles; M <= 64 (decode: M is the batch) the TMA + wgmma decode kernel,
+whose blocks split K inside a thread-block cluster and sum the splits
+through distributed shared memory (one launch, nothing allocated but
+the output, so a CUDA graph of the decode step captures it as it is).
+On CPU tensors it computes ``int8_matmul_plain``: the same function
+with the same casts (x -> bf16, w -> bf16 exactly, fp32 accumulation,
+fp32 scale on the product, one bf16 rounding).
 """
 from __future__ import annotations
 
@@ -22,8 +24,11 @@ import torch
 from dla_tpu_torch.ops import _native
 
 NAME = "int8_matmul"
-_BLOCK = 64       # the split-K kernel's M/N/K tile
-_TMA_ROWS = 128   # output rows of a TMA kernel block (two warpgroups)
+_DECODE_ROWS = 64  # most x rows of the decode kernel (its wgmma's N)
+_K_TILE = 64      # K depth of a ring stage (both kernels)
+# the decode kernel's blocks: (output columns, most K splits = the
+# largest cluster they run in)
+_DECODE_TILES = ((128, 4), (64, 16))
 
 
 def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
@@ -36,23 +41,33 @@ def int8_matmul_plain(x: torch.Tensor, w: torch.Tensor,
 
 
 class Plan(NamedTuple):
-    path: str     # "tma" (TMA + wgmma) or "splitk" (mma.sync, split K)
-    splits: int   # K splits of the split-K path (1 on the TMA path)
+    path: str     # "tma" (prefill, M > 64) or "decode" (M <= 64)
+    splits: int   # K splits, the blocks of a cluster (1 on the TMA path)
+    tile_n: int   # output columns of a block
 
 
 def plan(m: int, n: int, k: int, sms: int) -> Plan:
-    """The kernel and K splits for x [m, k] @ w [k, n] on a card with
-    ``sms`` multiprocessors. M >= 128 takes the TMA kernel; smaller M
-    the split-K kernel, K split so that at least one block lands on
-    every SM, never into more splits than a quarter of its 64-deep K
-    tiles (and at least 1)."""
-    if m >= _TMA_ROWS:
-        return Plan("tma", 1)
-    tiles = -(-m // _BLOCK) * -(-n // _BLOCK)
-    if tiles >= sms:
-        return Plan("splitk", 1)
-    k_tiles = -(-k // _BLOCK)
-    return Plan("splitk", max(1, min(-(-sms // tiles), k_tiles // 4, 16)))
+    """The kernel, block width and K splits for x [m, k] @ w [k, n] on a
+    card with ``sms`` multiprocessors. M > 64 takes the TMA kernel
+    (128 x 256 tiles, rows past M read as zeros). M <= 64 takes the
+    decode kernel with the widest
+    block (128 columns, else 64) whose output tiles, K split in powers
+    of two (at most 4 ways for 128 columns, where a larger cluster's sum
+    costs more than the wider block saves, 16 for 64, and never more
+    than the 64-deep K tiles, so no split is empty), put a block on
+    every SM; a product too small for that gets 64-column blocks and the
+    most splits its K allows."""
+    if m > _DECODE_ROWS:
+        return Plan("tma", 1, 256)
+    k_tiles = max(1, -(-k // _K_TILE))
+    for tile_n, most in _DECODE_TILES:
+        tiles = -(-n // tile_n)
+        splits = 1
+        while tiles * splits < sms and splits * 2 <= min(most, k_tiles):
+            splits *= 2
+        if tiles * splits >= sms:
+            return Plan("decode", splits, tile_n)
+    return Plan("decode", splits, tile_n)
 
 
 def int8_matmul(x: torch.Tensor, w: torch.Tensor,
@@ -84,7 +99,7 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
     x2 = x.reshape(-1, k).to(torch.bfloat16).contiguous()
     w = w.contiguous()
     wscale = wscale.reshape(-1).contiguous()
-    for t in (x2, w):
+    for t in (x2, w, wscale):
         if t.data_ptr() % 16:
             raise ValueError("int8_matmul: operands must be 16-byte aligned")
     m = x2.shape[0]
@@ -99,11 +114,9 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor,
             x2.data_ptr(), w.data_ptr(), wscale.data_ptr(), out.data_ptr(),
             m, n, k, stream)
     else:
-        partial = torch.empty((p.splits, m, n) if p.splits > 1 else (1,),
-                              dtype=torch.float32, device=x.device)
-        status = lib.dla_int8_matmul(
+        status = lib.dla_int8_matmul_decode(
             x2.data_ptr(), w.data_ptr(), wscale.data_ptr(), out.data_ptr(),
-            partial.data_ptr(), m, n, k, p.splits, stream)
+            m, n, k, p.tile_n, p.splits, stream)
     _native.check(status, NAME)
     _native.LAUNCHES[NAME] += 1
     return out.reshape(*lead, n)

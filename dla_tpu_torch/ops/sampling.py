@@ -70,8 +70,12 @@ def sample_token(generator: torch.Generator, logits: torch.Tensor, *,
         return logits.argmax(dim=-1).to(torch.int32)
     probs = filtered_probs(logits, temperature=temperature, top_p=top_p,
                            top_k=top_k, do_sample=True)
-    return torch.multinomial(probs, 1, generator=generator)[:, 0].to(
-        torch.int32)
+    # the exponential race: argmax_i p_i / E_i with E_i ~ Exp(1) drawn from
+    # ``generator`` is token i with probability p_i. torch.multinomial
+    # draws one sample the same way, with the same noise, but checks the
+    # probabilities on the host first, which a CUDA graph cannot capture
+    noise = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    return (probs / noise).argmax(dim=-1).to(torch.int32)
 
 
 def filter_logits_per_row(logits: torch.Tensor, temps: torch.Tensor,

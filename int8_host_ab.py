@@ -17,15 +17,17 @@ times each wrapper call on the host clock, then synchronizes. It prints
 one JSON line: the median host microseconds per call, the median host
 milliseconds per step (the sum of the calls), the median wall
 milliseconds per step (first call to the end of the synchronize), and,
-for the largest projection, the host microseconds of the C launch
-function called with ready arguments (what the wrapper's Python adds is
-the rest).
+for the largest projection, the host microseconds of the tree's C launch
+function for the decode's M = 64 called with ready arguments (what the
+wrapper's Python adds is the rest).
 
 With ``--decode-pairs N`` it then runs N more pairs of processes that
 each drive the whole rollout decode as ``chip_smoke.py`` does (llama3-8b
 at full width, int8 weights from a seed, batch 64, 128-token prompts,
-256 new tokens) and print the decode milliseconds per step, the median
-over ``DECODE_REPS`` generates of (generate - prefill) / 256.
+256 new tokens, through the tree's ``build_generate_fn``: eager steps,
+or one CUDA graph where the tree has it) and print the decode
+milliseconds per step, the median over ``DECODE_REPS`` generates of
+(generate - prefill) / 256, and the rollout tokens per second.
 
 Run it on a machine with one CUDA card:
 
@@ -91,20 +93,28 @@ def worker(tree: Path) -> dict:
             per_call += times
             step_host.append(sum(times))
             step_wall.append(wall)
-    # the C launch alone, ready arguments, largest projection: its 224
-    # output tiles of 64 x 64 leave K unsplit on a card of <= 224 SMs
+    # the C launch alone, ready arguments, largest projection (gate), in
+    # the tree's own decode entry point: the split-K kernel of the first
+    # port (one K split: 224 output tiles of 64 x 64) or the cluster
+    # kernel with the tree's plan
     w, s = layer[4]
     out = torch.empty((M, FFN), dtype=torch.bfloat16, device=dev)
-    part = torch.empty((1,), dtype=torch.float32, device=dev)
     lib, stream = _native.library(), _native.stream_handle(dev)
-    args = (x_h.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr(),
-            part.data_ptr(), M, FFN, HID, 1, stream)
+    ptrs = (x_h.data_ptr(), w.data_ptr(), s.data_ptr(), out.data_ptr())
+    if "dla_int8_matmul_decode" in _native._SIGNATURES:
+        p = qm.plan(M, FFN, HID, _native.sm_count(dev))
+        fn = lib.dla_int8_matmul_decode
+        args = (*ptrs, M, FFN, HID, p.tile_n, p.splits, stream)
+    else:
+        part = torch.empty((1,), dtype=torch.float32, device=dev)
+        fn = lib.dla_int8_matmul
+        args = (*ptrs, part.data_ptr(), M, FFN, HID, 1, stream)
     launch = []
     for rep in range(WARMUP + STEPS):
         torch.cuda.synchronize()
         for _ in range(100):
             a = time.perf_counter()
-            lib.dla_int8_matmul(*args)
+            fn(*args)
             launch.append(time.perf_counter() - a)
     torch.cuda.synchronize()
     return {"tree": str(tree), "calls_per_step": len(calls),
@@ -145,7 +155,7 @@ def decode_worker(tree: Path) -> dict:
         max_new_tokens=new, temperature=0.7, top_p=0.9, do_sample=True,
         eos_token_id=-1, pad_token_id=0))
     generate(params, ids, mask, torch.Generator(device=dev).manual_seed(7))
-    steps = []
+    steps, rates = [], []
     for i in range(DECODE_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -156,9 +166,12 @@ def decode_worker(tree: Path) -> dict:
         generate(params, ids, mask,
                  torch.Generator(device=dev).manual_seed(8 + i))
         torch.cuda.synchronize()
-        steps.append((time.perf_counter() - t0 - t_pre) / new * 1e3)
+        t_gen = time.perf_counter() - t0
+        steps.append((t_gen - t_pre) / new * 1e3)
+        rates.append(b * new / t_gen)
     return {"tree": str(tree), "decode_ms_per_step": statistics.median(steps),
-            "decode_ms_per_step_each": steps}
+            "decode_ms_per_step_each": steps,
+            "tokens_per_s": statistics.median(rates)}
 
 
 def _pairs(trees, n: int, flag: str, rows: dict, sinks) -> int:
@@ -224,7 +237,7 @@ def main() -> int:
     _compare(rows, ("host_us_per_call", "host_ms_per_step",
                     "wall_ms_per_step", "c_launch_us"), summary)
     if a.decode_pairs:
-        _compare(drows, ("decode_ms_per_step",), summary)
+        _compare(drows, ("decode_ms_per_step", "tokens_per_s"), summary)
     for f in sinks:
         print(json.dumps({"summary": summary}), file=f, flush=True)
     return 1 if failed else 0

@@ -26,6 +26,9 @@ from dla_tpu_torch.generation.engine import (
     GenerationEngine,
     build_generate_fn,
 )
+from dla_tpu_torch.models.config import ModelConfig
+from dla_tpu_torch.models.transformer import Transformer
+from dla_tpu_torch.models.weights import params_from_jax
 from dla_tpu_torch.ops.sampling import filtered_probs, sample_token
 from dla_tpu_torch.training.model_io import load_causal_lm
 
@@ -66,12 +69,12 @@ def _run_both(models, group_size=1, **gen_kw):
             {k: v.numpy() for k, v in tout.items()})
 
 
-def _assert_same(jout, tout):
+def _assert_same(jout, tout, logp_atol=1e-4):
     for key in ("sequences", "sequence_mask", "response_tokens",
                 "response_mask", "lengths"):
         np.testing.assert_array_equal(tout[key], jout[key], err_msg=key)
     np.testing.assert_allclose(tout["response_logps"],
-                               jout["response_logps"], atol=1e-4)
+                               jout["response_logps"], atol=logp_atol)
 
 
 def test_greedy_fixed_length_matches_jax(models):
@@ -95,6 +98,47 @@ def test_group_size_two_matches_jax(models):
                            eos_token_id=-1)
     assert tout["response_tokens"].shape == (6, 6)
     _assert_same(jout, tout)
+
+
+@pytest.mark.parametrize("cache", ["int8", "bfloat16"])
+def test_group_size_two_rollout_config_expands_the_cache(cache):
+    """group_size = 2 through build_generate_fn on the rollout
+    configuration (flash prefill, int8 weight tree, an int8 or bf16
+    cache through the decode kernel, whose fill is the cache's 0-dim
+    device column) matches the JAX package's group_size = 2 on the same
+    quantized tree: the same tokens, masks and lengths, logps to 5e-2
+    (bf16 activations rounded in another order). ``_expand`` repeats
+    every batch leaf and passes the column through, so each prompt's two
+    rows also decode exactly as the prompt alone does (logps to 1e-4)."""
+    kw = dict(vocab_size=256, hidden_size=256, intermediate_size=512,
+              num_layers=2, num_heads=2, num_kv_heads=1, max_seq_length=64,
+              attention="flash", kv_cache_dtype=cache, decode_kernel="on",
+              remat="none", dtype="bfloat16", param_dtype="bfloat16",
+              rope_theta=10000.0)
+    jm = JTransformer(JModelConfig(**kw))
+    tm = Transformer(ModelConfig(**kw))
+    jq = jm.quantize_weights(jm.init(jax.random.key(0)))
+    tq = params_from_jax(jax.tree.map(np.asarray, jq), "cpu")
+    ids, mask = (torch.from_numpy(a) for a in _prompts())
+    gen = GenerationConfig(do_sample=False, max_new_tokens=5,
+                           eos_token_id=-1)
+    g = torch.Generator().manual_seed(0)
+    two = build_generate_fn(tm, gen, group_size=2)(tq, ids, mask, g)
+    jout = j_build(jm, JGen(do_sample=False, max_new_tokens=5,
+                            eos_token_id=-1), group_size=2)(
+        jq, jnp.asarray(ids.numpy()), jnp.asarray(mask.numpy()),
+        jax.random.key(0))
+    _assert_same({k: np.asarray(v) for k, v in jout.items()},
+                 {k: v.numpy() for k, v in two.items()}, logp_atol=5e-2)
+    one = build_generate_fn(tm, gen)(tq, ids.repeat_interleave(2, 0),
+                                     mask.repeat_interleave(2, 0), g)
+    for key in ("sequences", "sequence_mask", "response_tokens",
+                "response_mask", "lengths"):
+        assert torch.equal(two[key], one[key]), key
+    assert torch.equal(two["response_tokens"][0::2],
+                       two["response_tokens"][1::2])
+    np.testing.assert_allclose(two["response_logps"].numpy(),
+                               one["response_logps"].numpy(), atol=1e-4)
 
 
 def test_generate_text_greedy(models):

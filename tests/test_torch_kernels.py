@@ -255,6 +255,10 @@ def _sym_int8(x: np.ndarray):
     dict(cache="bfloat16", fill=70, poison=True),
     dict(cache="int8", softcap=30.0),
     dict(cache="bfloat16", masked_row=True),     # row 0 attends only itself
+    # the fill as a 0-dim int32 tensor (the decode step's device column)
+    dict(cache="int8", fill=150, poison=True, fill_tensor=True),
+    dict(cache="bfloat16", fill=70, poison=True, fill_tensor=True),
+    dict(cache="int8", fill=0, fill_tensor=True),  # only the new column
 ])
 def test_decode_plain_matches_pallas(case):
     rs = np.random.RandomState(3)
@@ -296,11 +300,18 @@ def test_decode_plain_matches_pallas(case):
                    kv_positions=jnp.asarray(kpos), logit_softcap=cap,
                    kv_fill=None if fill is None else jnp.asarray(fill),
                    block_s=128, interpret=True, **kw_j)
-    out = flash_decode_attention(
-        qt, kct, vct, knt, vnt, kv_valid=torch.from_numpy(valid),
-        q_positions=torch.from_numpy(qpos),
-        kv_positions=torch.from_numpy(kpos.copy()), logit_softcap=cap,
-        kv_fill=fill, **kw_t)
+    call = dict(kv_valid=torch.from_numpy(valid),
+                q_positions=torch.from_numpy(qpos),
+                kv_positions=torch.from_numpy(kpos.copy()),
+                logit_softcap=cap, **kw_t)
+    out = flash_decode_attention(qt, kct, vct, knt, vnt, kv_fill=fill,
+                                 **call)
+    if case.get("fill_tensor"):   # the device-scalar form, same result
+        host = out
+        out = flash_decode_attention(
+            qt, kct, vct, knt, vnt,
+            kv_fill=torch.tensor(fill, dtype=torch.int32), **call)
+        assert torch.equal(out, host)
     assert out.dtype == torch.bfloat16 and out.shape == (b, 1, h, d)
     assert torch.isfinite(out.float()).all()
     np.testing.assert_allclose(_np(out), _np(ref), atol=2e-2, rtol=2e-2)

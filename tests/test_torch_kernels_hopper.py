@@ -82,43 +82,62 @@ def test_int8_matmul_plain_matches_pallas_at_tile_edges(m, k, n):
 
 @pytest.mark.parametrize("sms", [1, 114, H100_SMS])
 def test_int8_plan_covers_every_m(sms):
-    """Every M >= 1 gets a plan with a known path, K splits in [1, K
-    tiles], and the TMA path (one split) exactly from M = 128."""
+    """Every M >= 1 gets a plan with a known path: the TMA path (one
+    split, 256-column tiles, rows past M read as zeros) exactly from
+    M = 65, up to the decode batch of 64 the decode
+    kernel at 128 or 64 columns with a power-of-two count of K splits,
+    at most the cluster limit of its width and never more than the K
+    tiles (no empty split)."""
     for k, n in PROJ + [(8, 16), (72, 272), (64, 48)]:
         k_tiles = -(-k // 64)
         for m in list(range(1, 300)) + [511, 512, 4096, 8190, 8192, 65536]:
             p = plan(m, n, k, sms)
-            assert p.path == ("tma" if m >= 128 else "splitk"), (m, n, k, p)
+            assert p.path == ("tma" if m > 64 else "decode"), (m, n, k, p)
             if p.path == "tma":
-                assert p.splits == 1
-            assert 1 <= p.splits <= k_tiles, (m, n, k, p)
+                assert (p.splits, p.tile_n) == (1, 256)
+                continue
+            assert p.tile_n in (64, 128), p
+            assert p.splits & (p.splits - 1) == 0, p
+            assert 1 <= p.splits <= min(k_tiles, 4 if p.tile_n == 128
+                                        else 16), (m, n, k, p)
+            # each split's run of K tiles (the kernel's balanced cut)
+            runs = [(z + 1) * k_tiles // p.splits - z * k_tiles // p.splits
+                    for z in range(p.splits)]
+            assert min(runs) >= 1, (m, n, k, p, runs)
 
 
 @pytest.mark.parametrize("k,n", PROJ)
 def test_int8_plan_rollout_shapes(k, n):
-    """Decode (M = batch 64) keeps the split-K kernel, which reads the
-    int8 bytes with no tensor maps; a prefill (M = 64 x 128 = 8192)
-    takes the TMA + wgmma kernel, whose 128 x 256 tiles give enough
-    blocks for every SM of an H100 at each projection."""
-    dec = plan(64, n, k, H100_SMS)
-    assert dec.path == "splitk"
-    tiles = -(-64 // 64) * -(-n // 64)
-    if tiles < H100_SMS:   # few output tiles: K is split
-        assert dec.splits > 1
-    assert dec.splits <= -(-k // 64) // 4 or dec.splits == 1
-    assert plan(8192, n, k, H100_SMS) == ("tma", 1)
+    """Decode (M = batch 64, and the M = 1 edge) takes the cluster
+    split-K decode kernel with at least one block on every SM of an H100
+    for every projection and lm_head; a prefill (M = 64 x 128 = 8192),
+    and any M past the decode batch (65, 127), takes the TMA + wgmma
+    kernel, whose 128 x 256 tiles give enough blocks for every SM at
+    each projection of the prefill."""
+    for m in (1, 64):
+        dec = plan(m, n, k, H100_SMS)
+        assert dec.path == "decode"
+        assert -(-n // dec.tile_n) * dec.splits >= H100_SMS, (m, k, n, dec)
+        assert dec.splits <= -(-k // 64)
+    for m in (65, 127, 8192):
+        assert plan(m, n, k, H100_SMS) == ("tma", 1, 256)
     assert -(-8192 // 128) * -(-n // 256) >= H100_SMS
 
 
 def test_int8_plan_splitk_splits():
-    """The split-K path splits K until every SM has a block, never
-    beyond a quarter of the K tiles nor 16; enough output tiles or a
-    short K give one split."""
-    assert plan(1, 16, 8, H100_SMS) == ("splitk", 1)
-    assert plan(64, 1024, 256, H100_SMS).splits == 1   # 4 K tiles
-    assert plan(64, 1024, 4096, H100_SMS).splits == 9  # ceil(132 / 16)
-    assert plan(64, 64, 1 << 20, H100_SMS).splits == 16
-    assert plan(127, 64 * H100_SMS, 4096, H100_SMS) == ("splitk", 1)
+    """The decode kernel takes the widest block whose tiles, K split in
+    powers of two up to its cluster limit (4 at 128 columns, 16 at 64),
+    fill the card, splitting no more than needed: 128-column blocks for
+    lm_head and gate/up, 64-column blocks for the 4096- and 1024-wide
+    projections; a short K caps the splits at its K tiles."""
+    assert plan(64, 128256, 4096, H100_SMS) == ("decode", 1, 128)
+    assert plan(64, 14336, 4096, H100_SMS) == ("decode", 2, 128)
+    assert plan(64, 4096, 4096, H100_SMS) == ("decode", 4, 64)
+    assert plan(64, 4096, 14336, H100_SMS) == ("decode", 4, 64)
+    assert plan(64, 1024, 4096, H100_SMS) == ("decode", 16, 64)
+    assert plan(1, 16, 8, H100_SMS) == ("decode", 1, 64)
+    assert plan(64, 1024, 256, H100_SMS) == ("decode", 4, 64)  # 4 K tiles
+    assert plan(33, 128 * H100_SMS, 4096, H100_SMS) == ("decode", 1, 128)
 
 
 # --------------------------------------------------------- flash forward
@@ -191,7 +210,7 @@ def _code_of(path) -> str:
 
 
 @pytest.mark.parametrize("name", ["int8_matmul.cu", "flash_fwd.cu",
-                                  "hopper.cuh"])
+                                  "hopper.cuh", "decode_attn.cu"])
 def test_hopper_kernels_use_no_atomics(name):
     """Each output element has one owner that sums in a fixed order, so
     the rollout and SFT paths are bit-stable from run to run: no atomic
@@ -204,15 +223,38 @@ def test_hopper_kernels_use_no_atomics(name):
 
 @pytest.mark.parametrize("name,kernel", [
     ("int8_matmul.cu", "int8_mm_tma_kernel"),
+    ("int8_matmul.cu", "int8_mm_decode_kernel"),
     ("flash_fwd.cu", "flash_fwd_kernel"),
 ])
 def test_hopper_kernels_use_tma_ring_and_wgmma(name, kernel):
     """The redesigned kernels load through TMA into an mbarrier ring and
-    multiply with wgmma, and call no library kernel."""
+    multiply with wgmma, and call no library kernel; the prefill kernels
+    rebalance registers with setmaxnreg, the decode matmul sums its K
+    splits inside a cluster."""
     code = _code_of(CSRC / name)
     assert f"{kernel}(" in code
+    extra = "cluster_sync" if kernel == "int8_mm_decode_kernel" \
+        else "setmaxnreg_"
     for needed in ("tma_load_", "mbar_wait", "mbar_arrive", "wgmma_",
-                   "setmaxnreg_"):
+                   extra):
         assert needed in code, (name, needed)
     for banned in ("cublas", "cudnn", "cutlass::gemm"):
         assert banned not in code.lower(), (name, banned)
+
+
+def test_decode_attention_source_one_launch_fixed_grid():
+    """Decode attention is one kernel whose grid is (batch x kv heads,
+    split), read from the shapes only: the fill comes from a device
+    scalar inside the kernel, so a CUDA graph of the decode step replays
+    it at every fill. The two-kernel split-S design with its fp32
+    workspace is gone."""
+    code = _code_of(CSRC / "decode_attn.cu")
+    assert code.count("__global__") == 1
+    assert "decode_attn_kernel(" in code
+    assert "dim3(pairs, split, 1)" in code
+    assert "fill_dev" in code and "*a.fill_dev" in code
+    for gone in ("decode_chunk_kernel", "decode_merge_kernel", "ws"):
+        assert not re.search(rf"\b{gone}\b", code), gone
+    for needed in ("cp_async16", "mma_16816", "ldsm_x4_trans",
+                   "cluster_sync"):
+        assert needed in code, needed

@@ -163,11 +163,17 @@ def test_quantize_weights_matches_jax(rollout):
     {},                          # llama
     {"sliding_window": 6},       # mistral-style uniform window
     {"attention_bias": True},    # qwen2-style q/k/v biases
+    # a bf16 cache, still through the decode kernel
+    {"kv_cache_dtype": "bfloat16", "decode_kernel": "on"},
 ])
 def test_rollout_prefill_and_decode_match_jax(variant, monkeypatch):
-    """start_decode (flash prefill + int8 cache) and three decode steps
-    (decode kernel + int8 matmuls) on the same quantized tree. Spies on
-    the three kernel wrappers pin that the port routed through them."""
+    """start_decode (flash prefill + int8 or bf16 cache) and three decode
+    steps (decode kernel + int8 matmuls) on the same quantized tree. The
+    steps write the cache at the device column ``cache["col"]`` and give
+    the decode kernel that 0-dim int32 tensor as its fill; the cache's
+    bookkeeping (col, valid, pos, lengths) must match JAX's after them.
+    Spies on the three kernel wrappers pin that the port routed through
+    them."""
     from dla_tpu_torch.ops import decode_kernel, flash_attention, quant_matmul
     calls = {"flash": 0, "decode": 0, "int8": 0}
 
@@ -193,16 +199,26 @@ def test_rollout_prefill_and_decode_match_jax(variant, monkeypatch):
     # the cache through its dequantized values (int8 codes may differ by
     # one where bf16 k/v rounded differently before quantization)
     for key in ("k", "v"):
+        if key + "_scale" not in tc:     # bf16 cache
+            np.testing.assert_allclose(_f32(tc[key]), _f32(jc[key]),
+                                       atol=5e-2)
+            continue
         deq_t = tc[key].float() * tc[key + "_scale"].transpose(2, 3)[..., None]
         deq_j = (np.asarray(jc[key], np.float32)
                  * np.asarray(jc[key + "_scale"]).transpose(0, 1, 3, 2)[..., None])
         np.testing.assert_allclose(deq_t.numpy(), deq_j, atol=5e-2)
     np.testing.assert_array_equal(tc["valid"].numpy(), np.asarray(jc["valid"]))
-    for _ in range(3):
+    for step in range(3):
+        assert tc["col"].dtype == torch.int32 and tc["col"].ndim == 0
+        assert int(tc["col"]) == 16 + step
         tok = np.asarray(jnp.argmax(jl, -1)).astype(np.int32)
         jl, jc = jm.decode_step(jq, jc, jnp.asarray(tok))
         tl, tc = tm.decode_step(tq, tc, torch.from_numpy(tok))
         np.testing.assert_allclose(_f32(tl), _f32(jl), atol=5e-2, rtol=5e-2)
+    assert int(tc["col"]) == 16 + 3 and tc["step"] == 3
+    for key in ("valid", "pos", "lengths"):
+        np.testing.assert_array_equal(tc[key].numpy(), np.asarray(jc[key]),
+                                      err_msg=key)
     # 2 layers: flash once per layer at prefill; decode attention once per
     # layer per step; 7 projections per layer + lm_head per forward
     assert calls == {"flash": 2, "decode": 2 * 3, "int8": 15 * (1 + 3)}

@@ -30,14 +30,17 @@ every fault, and the result lines are printed only when all passed):
              at ragged T=77, at head_dim 128 and at head_dim 96 (packed
              segments and a window), and the
              autograd Function's gradients against autograd through the
-             plain forward;
+             plain forward; #1, #2 and #3 again at the preference shape
+             (B2 T1024 H32 KH8 D64, right-padded rows, real rows
+             compared);
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
              flash forward, dQ and dK/dV also at the SFT shape, and with
              packed segment ids (bound from the live pairs of those ids;
              yardstick: SDPA given the block-diagonal causal mask, its
-             backend named);
+             backend named), and at the preference shape (causal; SDPA
+             with ``is_causal``);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -59,13 +62,34 @@ every fault, and the result lines are printed only when all passed):
              depth (random init, byte tokenizer, flash + full remat, fp32
              params, bf16 activations, packing into 2048-token rows,
              micro-batch 4), cut to grad accumulation 4 and 4 steps, eval
-             every 2 steps, final save into build/ (timed, then deleted).
+             every 2 steps, final save into build/ (timed; the preference
+             phase starts from it and deletes it).
              Launch counts must equal the path's, losses and grad norms
              be finite and the first loss near ln V. Then, at 2 layers:
              every leaf's gradient on the kernel path against the plain
              path (judged against the bf16 noise floor), an interrupted
              and resumed run's step 3-4 losses against the uninterrupted
-             run's, and a loss that falls on one repeated batch.
+             run's, and a loss that falls on one repeated batch;
+6. preference — from the train phase's SFT checkpoint (its ``latest``, as
+             the configs chain the phases), at full width and depth:
+             ``train_reward.main`` on config/reward_config.yaml (last-token
+             pooling, dropout 0.1, micro-batch 2, 1024-token right-padded
+             rows as configured) and ``train_dpo.main`` on
+             config/dpo_config.yaml (policy and reference the SFT
+             checkpoint, beta 0.1, micro-batch 1), byte tokenizer, local
+             records from the seed, each cut to grad accumulation 4 and 4
+             steps with an eval every 2. Launch counts must equal the
+             path's, losses, grad norms and metrics be finite, the
+             accuracy and preference rate lie in [0, 1], DPO's first loss
+             be ln 2 within 1e-4 with margin 0 (policy = reference), and
+             each final checkpoint load back equal to the trained
+             parameters; then a steady-state step is timed and profiled.
+             At 2 layers: each loss's per-leaf gradients on the kernel
+             path against the plain path (bf16 floor), packed rewards and
+             log-probs against the same pairs unpacked (same floor), an
+             interrupted and resumed reward run (dropout on) against the
+             uninterrupted one, and a loss that falls on one repeated
+             batch. The checkpoints are deleted at the end.
 
 Last lines: the card's name and power limit (nvidia-smi), a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -77,6 +101,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -99,6 +124,16 @@ SFT_ACCUM, SFT_STEPS, SFT_EVAL_EVERY = 4, 4, 2
 # ends (it wraps epochs, as the JAX package's does): 32 records = 8
 # distinct batches of 4
 SFT_EVAL_BATCHES, SFT_EVAL_RECORDS = 8, 32
+
+# the preference path (llama3.2-1b from the train phase's SFT checkpoint;
+# config/reward_config.yaml and config/dpo_config.yaml): right-padded rows
+# of 1024 tokens, micro-batch 2 (reward) and 1 (DPO) as configured
+REWARD_CONFIG = ROOT / "config" / "reward_config.yaml"
+DPO_CONFIG = ROOT / "config" / "dpo_config.yaml"
+SFT_WORK = ROOT / "build" / "chip_smoke_sft"
+PREF_T, RM_B, DPO_B = 1024, 2, 1
+PREF_ACCUM, PREF_STEPS, PREF_EVAL_EVERY = 4, 4, 2   # configs: 32 / 256; 3000 / 2000
+PREF_TRAIN_RECORDS, PREF_EVAL_RECORDS = 64, 16
 
 # the rollout path's shapes (llama3-8b, config/rlhf_config.yaml)
 B, PROMPT, NEW = 64, 128, 256
@@ -193,6 +228,9 @@ def main() -> int:
 
     with run.phase("train"):
         train_run(run, torch, dev, _native)
+
+    with run.phase("preference"):
+        preference_run(run, torch, dev, _native)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -477,6 +515,7 @@ def parity(run, torch, dev):
         del x, w, sc, out, ref
     errs["int8_matmul"] = worst
     parity_backward(run, torch, dev, g, errs)
+    parity_preference(run, torch, dev, g)
     run.report["parity_max_err"] = errs
 
 
@@ -557,6 +596,67 @@ def parity_backward(run, torch, dev, g, errs):
         tol = 2e-2 * r.float().abs().max().item()
         run.check(e <= tol, f"flash autograd Function {name} vs autograd "
                   f"of the plain forward: max|err| {e:.3g} <= {tol:.3g}")
+
+
+def parity_preference(run, torch, dev, g):
+    """#1, #2 and #3 at the preference shape (B2 T1024 H32 KH8 D64,
+    causal, no segment ids) on right-padded rows whose real lengths are
+    those of the reward path's first micro-batch. Pad queries produce
+    values nobody reads, and their dO is 0 on the path (no loss reads a
+    pad position): the forward and dQ are compared on the real rows;
+    dK and dV on all rows (pad keys are seen by pad queries only, so
+    theirs are 0 in both). Tolerances as above: forward 3e-2 (lse 1e-3),
+    kernels 1e-2 * max|ref|, autograd Function 2e-2 * max|ref|."""
+    from dla_tpu_torch.ops import flash_attention as fa
+    lens = _pref_first_lengths()
+    b, t, h, kh, d = RM_B, PREF_T, SFT_H, SFT_KH, SFT_HD
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
+        mk(b, t, h, d)
+    real = (torch.arange(t, device=dev)[None, :]
+            < torch.tensor(lens, device=dev)[:, None])           # [B, T]
+    do = do * real[:, :, None, None].to(do.dtype)
+    label = f"preference shape B{b} T{t} H{h} KH{kh} D{d}, real lengths {lens}"
+    errs = {}
+    out, lse = fa.flash_attention_forward(q, k, v)
+    ref, ref_lse = fa.flash_forward_plain(q, k, v)
+    torch.cuda.synchronize()
+    e = (out.float() - ref.float())[real].abs().max().item()
+    e_lse = (lse - ref_lse).transpose(1, 2)[real].abs().max().item()
+    run.check(e <= 3e-2 and e_lse <= 1e-3 and torch.isfinite(
+        out.float()[real]).all().item(),
+        f"flash {label}, real rows: max|out err| {e:.3g} <= 3e-2, "
+        f"max|lse err| {e_lse:.3g} <= 1e-3")
+    errs["flash_attention_fwd"] = e
+    got = fa.flash_attention_backward(q, k, v, out, lse, do)
+    refb = fa.flash_backward_plain(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name, a, r in zip(("dq", "dk", "dv"), got, refb):
+        a, r = a.float(), r.float()
+        if name == "dq":
+            a, r = a[real], r[real]
+        e = (a - r).abs().max().item()
+        tol = 1e-2 * r.abs().max().item()
+        run.check(e <= tol and torch.isfinite(a).all().item(),
+                  f"flash bwd {label} {name}"
+                  f"{', real rows' if name == 'dq' else ''}: max|err| "
+                  f"{e:.3g} <= {tol:.3g}")
+        errs[name] = e
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    got = torch.autograd.grad(fa.flash_causal_attention(*leaves), leaves, do)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    refb = torch.autograd.grad(fa.flash_forward_plain(*leaves)[0], leaves,
+                               do)
+    for name, a, r in zip(("dq", "dk", "dv"), got, refb):
+        a, r = a.float(), r.float()
+        if name == "dq":
+            a, r = a[real], r[real]
+        e = (a - r).abs().max().item()
+        tol = 2e-2 * r.abs().max().item()
+        run.check(e <= tol, f"flash autograd Function {label} {name} vs "
+                  f"autograd of the plain forward: max|err| {e:.3g} <= "
+                  f"{tol:.3g}")
+    run.report["parity_preference"] = dict(lengths=lens, max_abs_err=errs)
 
 
 # ------------------------------------------------------------------ timing
@@ -746,6 +846,7 @@ def timing(run, torch, dev):
     print(f"   int8_matmul decode step, 225 calls in order: {seq:.4f} ms, "
           f"torch.matmul {seq_lib:.4f} ms", flush=True)
     timing_sft(run, torch, dev, g)
+    timing_preference(run, torch, dev, g)
 
 
 def _int8_step_sequence(torch, dev, g, qm):
@@ -957,6 +1058,79 @@ def timing_sft(run, torch, dev, g):
     print(f"   SFT flash backward (delta + dQ + dK/dV): {t_bwd:.4f} ms vs "
           f"SDPA backward {t_lb:.4f} ms", flush=True)
     del sets, lib, lib_p, mask
+    torch.cuda.empty_cache()
+
+
+def timing_preference(run, torch, dev, g):
+    """Flash forward, dQ and dK/dV at the preference shape (B=2, T=1024,
+    H=32, KH=8, D=64, causal, no segment ids: right-padded rows need no
+    mask, so every causal tile is computed), their plain versions and
+    SDPA with ``is_causal`` (forward; autograd backward for dQ, dK and
+    dV together). Bounds as in ``timing_sft``, over the causal work."""
+    import torch.nn.functional as F
+    from dla_tpu_torch.ops import flash_attention as fa
+    b, t, h, kh, d = RM_B, PREF_T, SFT_H, SFT_KH, SFT_HD
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    qb, kvb, rowb = b * t * h * d * 2, b * t * kh * d * 2, b * h * t * 4
+    sets = []
+    for _ in range(_copies(3 * qb + 2 * kvb)):
+        q, k, v, do = mk(b, t, h, d), mk(b, t, kh, d), mk(b, t, kh, d), \
+            mk(b, t, h, d)
+        out, lse = fa.flash_attention_forward(q, k, v)
+        sets.append(dict(q=q, k=k, v=v, do=do, out=out, lse=lse,
+                         delta=fa.delta_rowsum(out, do)))
+    mm = 2 * b * h * d * t * (t + 1) // 2          # one causal product
+    t_fwd = _time_ms(torch, [lambda s=s: fa.flash_attention_forward(
+        s["q"], s["k"], s["v"]) for s in sets * 2])
+    t_dq = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(
+        s["q"], s["k"], s["v"], s["out"], s["do"], s["lse"], None, None,
+        None, None) for s in sets * 2])
+    t_dkv = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(
+        s["q"], s["k"], s["v"], s["do"], s["lse"], s["delta"], None, None,
+        None, None) for s in sets * 2])
+    t_pf = _time_ms(torch, [lambda s=s: fa.flash_forward_plain(
+        s["q"], s["k"], s["v"]) for s in sets[:2]], reps=3)
+    t_pb = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
+        s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
+        for s in sets[:2]], reps=3)
+    lib = []
+    for s in sets:
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (s["q"], s["k"], s["v"]))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True,
+                                           enable_gqa=True)
+        lib.append((qs, ks, vs, o, s["do"].transpose(1, 2).contiguous()))
+    with torch.no_grad():
+        t_lf = _time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
+            s[0], s[1], s[2], is_causal=True, enable_gqa=True)
+            for s in lib * 2])
+    t_lb = _time_ms(torch, [lambda s=s: torch.autograd.grad(
+        s[3], s[:3], s[4], retain_graph=True) for s in lib * 2])
+    unit = "one launch: one layer of a preference micro-step, B2 T1024 " \
+           "H32 KH8 D64, causal, right-padded rows"
+    rows = {
+        "fwd": dict(ms=t_fwd, plain_ms=t_pf, library_ms=t_lf, unit=unit,
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        2 * qb + 2 * kvb + rowb, 2 * mm)))),
+        "dq": dict(ms=t_dq, plain_ms=t_pb, library_ms=t_lb,
+                   unit=unit + " (plain and library: dQ, dK and dV)",
+                   **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                       4 * qb + 2 * kvb + 2 * rowb, 3 * mm)))),
+        "dkv": dict(ms=t_dkv, plain_ms=t_pb, library_ms=t_lb,
+                    unit=unit + " (plain and library: dQ, dK and dV)",
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        2 * qb + 4 * kvb + 2 * rowb, 4 * mm))))}
+    run.report["timing_preference"] = rows
+    for key, name in (("fwd", "flash_attention_fwd"),
+                      ("dq", "flash_attention_bwd_dq"),
+                      ("dkv", "flash_attention_bwd_dkv")):
+        run.kernels[name]["preference_shape"] = rows[key]
+        r = rows[key]
+        print(f"   preference flash {key}: {r['ms']:.4f} ms vs bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA "
+              f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}",
+              flush=True)
+    del sets, lib
     torch.cuda.empty_cache()
 
 
@@ -1243,12 +1417,13 @@ def _trace_kernels(torch, prof):
 
 def _device_ms(prof, n: int, ops: bool = False):
     """(device ms per iteration by kernel name, total) from a profile of
-    ``n`` iterations. With ``ops``, the names are instead the ATen ops
-    whose own launches took that device time (kernels attributed to the
-    op that launched them)."""
+    ``n`` iterations (or its ``key_averages()``). With ``ops``, the names
+    are instead the ATen ops whose own launches took that device time
+    (kernels attributed to the op that launched them)."""
     from torch.autograd import DeviceType
     per_name = {}
-    for ev in prof.key_averages():
+    events = prof if isinstance(prof, list) else prof.key_averages()
+    for ev in events:
         if ops != (ev.device_type == DeviceType.CPU) or (
                 ops and not ev.key.startswith("aten::")):
             continue
@@ -1389,15 +1564,21 @@ def _small_trainer(torch, dev, layers: int, opt: dict, out_dir, seed=SEED):
                    params=params), model
 
 
-def _sft_opt(**over):
-    """config/sft_config.yaml's optimization block at this run's cuts."""
+def _config_opt(config: Path, **over):
+    """A config's optimization block with ``over`` set (this run's cuts;
+    one device, so no total batch size)."""
     from dla_tpu_torch.training.config import load_config
-    opt = dict(load_config(SFT_CONFIG)["optimization"])
+    opt = dict(load_config(config)["optimization"])
     opt.pop("total_batch_size")
-    opt.update(micro_batch_size=SFT_B, gradient_accumulation_steps=SFT_ACCUM,
-               max_train_steps=SFT_STEPS)
     opt.update(over)
     return opt
+
+
+def _sft_opt(**over):
+    """config/sft_config.yaml's optimization block at this run's cuts."""
+    return _config_opt(SFT_CONFIG, **{
+        "micro_batch_size": SFT_B, "gradient_accumulation_steps": SFT_ACCUM,
+        "max_train_steps": SFT_STEPS, **over})
 
 
 def train_run(run, torch, dev, native):
@@ -1456,8 +1637,7 @@ def train_run(run, torch, dev, native):
     run.check(index["leaves"]["params.layers.wq"]["shape"]
               == [SFT_LAYERS, 2048, 2048] and index["aux"]["step"]
               == SFT_STEPS, "final/ holds stacked params at step 4")
-    save_s = trainer.last_save_s
-    shutil.rmtree(work / "ckpt")
+    save_s = trainer.last_save_s   # final/ stays for the preference phase
 
     # steady state: one optimizer step and one micro-step, synchronized
     batch = _sft_batches(work, 1)[0]
@@ -1484,7 +1664,7 @@ def train_run(run, torch, dev, native):
     mb = {k: torch.from_numpy(v[:SFT_B]).to(dev) for k, v in batch.items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    loss, _ = trainer.loss_fn(trainer.train_params, mb)
+    loss, _ = trainer.loss_fn(trainer.train_params, None, mb, None)
     loss.backward()
     torch.cuda.synchronize()
     micro_s = time.perf_counter() - t0
@@ -1529,23 +1709,35 @@ def train_run(run, torch, dev, native):
     torch.cuda.empty_cache()
 
     train_checks_2_layers(run, torch, dev, work)
-    shutil.rmtree(work, ignore_errors=True)
+    for d in work.iterdir():     # all but ckpt/, which the next phase reads
+        if d.name != "ckpt":
+            shutil.rmtree(d) if d.is_dir() else d.unlink()
 
 
-def _grads(torch, model, params, mb):
-    """{leaf name: fp32 gradient} of the SFT loss on one micro-batch, the
+def _named_leaves(views, prefix=""):
+    """{dotted name: tensor} of a tree of the Trainer's per-layer views."""
+    out = {}
+    for k, v in views.items():
+        if isinstance(v, dict):
+            out.update(_named_leaves(v, f"{prefix}{k}."))
+        elif isinstance(v, list):
+            for i, layer in enumerate(v):
+                out.update(_named_leaves(layer, f"{prefix}{k}.{i}."))
+        else:
+            out[prefix + k] = v
+    return out
+
+
+def _grads(torch, loss_of, params):
+    """(loss, {leaf name: fp32 gradient}) of ``loss_of(views)``, the
     autograd leaves being per-layer views (the Trainer's)."""
-    from dla_tpu_torch.ops.fused_ce import model_fused_ce
     from dla_tpu_torch.training.trainer import _train_views
     views = _train_views(params)
-    named = {"embed": views["embed"]["embedding"],
-             "final_norm": views["final_norm"]}
-    for i, layer in enumerate(views["layers"]):
-        named.update({f"layers.{i}.{k}": t for k, t in layer.items()})
+    named = _named_leaves(views)
     for t in named.values():
         t.requires_grad_(True)
         t.grad = None
-    loss, _ = model_fused_ce(model, views, mb)
+    loss = loss_of(views)
     loss.backward()
     out = {k: t.grad.float().clone() for k, t in named.items()}
     loss = loss.detach()
@@ -1554,9 +1746,33 @@ def _grads(torch, model, params, mb):
     return float(loss), out
 
 
+def _grad_floor_check(run, torch, label, gk, gp, g32, factor=1.0):
+    """Every leaf's relative gradient error on the kernel path (against
+    the plain versions) must not exceed ``factor`` times the plain path's
+    own bf16 error (against fp32 activations)."""
+    worst = {}
+    for name in gk:
+        ref = gp[name].norm().item()
+        e = (gk[name] - gp[name]).norm().item() / max(ref, 1e-30)
+        floor = (gp[name] - g32[name]).norm().item() / max(
+            g32[name].norm().item(), 1e-30)
+        worst[name] = (e, floor)
+    bad = {k: v for k, v in worst.items() if not v[0] <= factor * v[1]}
+    top = sorted(worst.items(),
+                 key=lambda kv: -kv[1][0] / max(kv[1][1], 1e-30))[:4]
+    print(f"   {label}: per-leaf relative gradient error (kernels vs "
+          f"plain, plain bf16 vs fp32), worst ratios: {top}", flush=True)
+    bound = "" if factor == 1.0 else f"{factor:.3g} x "
+    run.check(not bad, f"{label}: every leaf's gradient on the kernel path "
+              f"is within {bound}the plain path's distance from fp32 "
+              f"({len(worst)} leaves; over: {sorted(bad)})")
+    return worst
+
+
 def train_checks_2_layers(run, torch, dev, work):
     import dataclasses
     from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.ops.fused_ce import model_fused_ce
 
     batches = _sft_batches(work, SFT_STEPS)
 
@@ -1565,31 +1781,20 @@ def train_checks_2_layers(run, torch, dev, work):
     params = trainer.params
     mb = {k: torch.from_numpy(v[:SFT_B]).to(dev)
           for k, v in batches[0].items()}
-    lk, gk = _grads(torch, model, params, mb)
+    model32 = Transformer(dataclasses.replace(model.cfg, dtype="float32"))
+    lk, gk = _grads(torch, lambda v: model_fused_ce(model, v, mb)[0], params)
     with plain_versions():
-        lp, gp = _grads(torch, model, params, mb)
-        l32, g32 = _grads(torch, Transformer(dataclasses.replace(
-            model.cfg, dtype="float32")), params, mb)
-    worst = {}
-    for name in gk:
-        ref = gp[name].norm().item()
-        e = (gk[name] - gp[name]).norm().item() / max(ref, 1e-30)
-        floor = (gp[name] - g32[name]).norm().item() / max(
-            g32[name].norm().item(), 1e-30)
-        worst[name] = (e, floor)
-    bad = {k: v for k, v in worst.items() if not v[0] <= v[1]}
-    top = sorted(worst.items(),
-                 key=lambda kv: -kv[1][0] / max(kv[1][1], 1e-30))[:4]
+        lp, gp = _grads(torch, lambda v: model_fused_ce(model, v, mb)[0],
+                        params)
+        l32, g32 = _grads(torch, lambda v: model_fused_ce(model32, v, mb)[0],
+                          params)
     print(f"   2-layer loss kernels {lk:.6f}, plain {lp:.6f}, plain fp32 "
-          f"{l32:.6f}; per-leaf relative gradient error (kernels vs plain, "
-          f"plain bf16 vs fp32), worst ratios: {top}", flush=True)
+          f"{l32:.6f}", flush=True)
+    worst = _grad_floor_check(run, torch, "SFT loss, 2 layers", gk, gp, g32)
     run.report["train_grad_check"] = dict(
         loss_kernels=lk, loss_plain=lp, loss_plain_fp32=l32,
         rel_err_vs_floor=worst)
-    run.check(not bad, f"every leaf's gradient on the kernel path is as "
-              f"close to the plain path as bf16 is to fp32 ({len(worst)} "
-              f"leaves; over the floor: {sorted(bad)})")
-    del trainer, model, params, gk, gp, g32, mb
+    del trainer, model, model32, params, gk, gp, g32, mb
     torch.cuda.empty_cache()
 
     # interrupted at step 2 and resumed vs uninterrupted
@@ -1624,6 +1829,581 @@ def train_checks_2_layers(run, torch, dev, work):
     run.report["train_overfit"] = ld
     run.check(ld[-1] < ld[0] - 0.5, f"loss falls on a repeated batch "
               f"({ld[0]:.4f} -> {ld[-1]:.4f}, by more than 0.5)")
+
+
+# -------------------------------------------------------------- preference
+
+@contextlib.contextmanager
+def plain_kernels():
+    """Route the flash autograd Function through the kernels' plain
+    versions (``flash_forward_plain`` / ``flash_backward_plain``: the
+    same arithmetic as the kernels, dS rounded to bf16 as the Pallas
+    kernels do), where ``plain_versions`` differentiates the plain
+    forward with autograd (dS kept in fp32)."""
+    from dla_tpu_torch.ops import flash_attention as fa
+    saved = (fa.flash_attention_forward, fa.flash_attention_backward)
+    fa.flash_attention_forward = lambda q, k, v, **kw: \
+        fa.flash_forward_plain(q, k, v, **kw)
+    fa.flash_attention_backward = fa.flash_backward_plain
+    try:
+        yield
+    finally:
+        fa.flash_attention_forward, fa.flash_attention_backward = saved
+
+
+def _pref_records(n: int, seed: int):
+    """Preference records: prompts of 32..256 bytes, chosen and rejected
+    responses of 32..900 (= byte-tokenizer tokens); the longest pairs run
+    past 1024 tokens and are truncated."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+
+    def text(lo, hi):
+        return "".join(rs.choice(_LETTERS, int(rs.randint(lo, hi + 1))))
+    return [{"prompt": text(32, 256), "chosen": text(32, 900),
+             "rejected": text(32, 900)} for _ in range(n)]
+
+
+def _pref_first_lengths():
+    """Real lengths of the chosen rows of the reward path's first
+    micro-batch (the CLI's iterator over the phase's records)."""
+    from dla_tpu_torch.data.datasets import PreferenceDataset
+    from dla_tpu_torch.data.iterator import ShardedBatchIterator
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    ds = PreferenceDataset(ByteTokenizer(), PREF_T,
+                           records=_pref_records(PREF_TRAIN_RECORDS, SEED))
+    batch = next(iter(ShardedBatchIterator(ds, RM_B * PREF_ACCUM,
+                                           seed=SEED)))
+    return [int(x) for x in batch["chosen"]["attention_mask"][:RM_B].sum(1)]
+
+
+def _pref_argv(phase: str, work: Path):
+    """The CLI's arguments: the phase's config with the SFT checkpoint as
+    the starting point (``latest``, as the configs chain phases), the
+    byte tokenizer, local records and this run's cuts."""
+    sft = str(SFT_WORK / "ckpt" / "latest")
+    sets = {"seed": SEED, "model.tokenizer": "byte",
+            "model.max_seq_length": PREF_T,
+            "data.eval_path": str(work / "eval.jsonl"),
+            "hardware.gradient_accumulation_steps": PREF_ACCUM,
+            "optimization.max_train_steps": PREF_STEPS,
+            "logging.eval_every_steps": PREF_EVAL_EVERY,
+            "logging.log_every_steps": 1,
+            "logging.output_dir": str(work / phase / "ckpt"),
+            "logging.log_dir": str(work / phase / "logs")}
+    if phase == "reward":
+        config = REWARD_CONFIG
+        sets.update({"model.base_model_name_or_path": sft,
+                     "model.pooling": "last_token", "model.dropout": 0.1,
+                     "optimization.micro_batch_size": RM_B,
+                     "data.train_path": str(work / "train.jsonl")})
+    else:
+        config = DPO_CONFIG
+        sets.update({"model.policy_model_name_or_path": sft,
+                     "model.reference_model_name_or_path": sft,
+                     "model.beta": 0.1, "model.label_smoothing": 0.0,
+                     "optimization.micro_batch_size": DPO_B,
+                     "data.preference_path": str(work / "train.jsonl")})
+    argv = ["--config", str(config)]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    return argv
+
+
+def _pref_batches(phase: str, work: Path, n: int):
+    """The first ``n`` global batches the phase's CLI iterator yields."""
+    from dla_tpu_torch.data.iterator import ShardedBatchIterator
+    from dla_tpu_torch.data.loaders import build_preference_splits
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.training.config import (config_from_args,
+                                               make_arg_parser)
+    config = config_from_args(make_arg_parser("").parse_args(
+        _pref_argv(phase, work)))
+    train, _, _ = build_preference_splits(config, ByteTokenizer(), PREF_T)
+    micro = config["optimization"]["micro_batch_size"]
+    it = iter(ShardedBatchIterator(train, micro * PREF_ACCUM,
+                                   seed=int(config["seed"])))
+    return [next(it) for _ in range(n)]
+
+
+def _pref_launches(phase: str, micro_steps: int, eval_batches: int):
+    """Wrapper launches of #1, #2, #3 on the path: per micro-step each
+    side's trained forward runs every layer twice (full remat) and its
+    backward once; DPO adds the reference's forward of both sides (no
+    grad: once per layer); an eval batch runs each forward once."""
+    L = SFT_LAYERS
+    fwd = 2 * L * 2 + (2 * L if phase == "dpo" else 0)
+    eval_fwd = 2 * L * (2 if phase == "dpo" else 1)
+    return {"flash_attention_fwd": micro_steps * fwd
+            + eval_batches * eval_fwd,
+            "flash_attention_bwd_dq": micro_steps * 2 * L,
+            "flash_attention_bwd_dkv": micro_steps * 2 * L}
+
+
+def _run_parts(run, parts):
+    """Run each part; print a failing part's traceback and go on, so one
+    run shows every fault; raise at the end if any failed."""
+    failed = []
+    for name, fn in parts:
+        t0 = time.perf_counter()
+        try:
+            fn()
+        except Exception:  # noqa: BLE001 — recorded, raised below
+            failed.append(name)
+            print(f"!! {name} FAILED", flush=True)
+            traceback.print_exc(file=sys.stdout)
+        print(f"   {name}: {time.perf_counter() - t0:.1f} s", flush=True)
+    if failed:
+        raise AssertionError(f"failed: {failed}")
+
+
+def preference_run(run, torch, dev, native):
+    import gc
+    import shutil
+    from dla_tpu_torch.data.jsonl import write_jsonl
+    work = ROOT / "build" / "chip_smoke_pref"
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        run.check((SFT_WORK / "ckpt" / "final" / "index.json").is_file(),
+                  "the train phase's SFT checkpoint is there to start from")
+        print(f"   {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated at the start", flush=True)
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        write_jsonl(work / "train.jsonl",
+                    _pref_records(PREF_TRAIN_RECORDS, SEED))
+        write_jsonl(work / "eval.jsonl",
+                    _pref_records(PREF_EVAL_RECORDS, SEED + 1))
+        _run_parts(run, [
+            ("reward CLI", lambda: pref_cli(run, torch, dev, native,
+                                            "reward", work)),
+            ("DPO CLI", lambda: pref_cli(run, torch, dev, native, "dpo",
+                                         work)),
+            ("2-layer checks", lambda: pref_checks_2_layers(
+                run, torch, dev, work))])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(SFT_WORK, ignore_errors=True)
+
+
+def _params_equal(torch, a, b) -> bool:
+    if isinstance(a, dict):
+        return set(a) == set(b) and all(_params_equal(torch, a[k], b[k])
+                                        for k in a)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+def pref_cli(run, torch, dev, native, phase: str, work: Path):
+    """One preference CLI at full width and depth from the SFT checkpoint,
+    its gates, its final checkpoint read back, then the steady-state step
+    measured on the CLI's first batch."""
+    import gc
+    import shutil
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from dla_tpu_torch.training import train_dpo, train_reward
+    from dla_tpu_torch.training.model_io import (build_reward_model,
+                                                 load_causal_lm)
+    micro_rows = RM_B if phase == "reward" else DPO_B
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    main_fn = train_reward.main if phase == "reward" else train_dpo.main
+    trainer = main_fn(_pref_argv(phase, work), device="cuda")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = native.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_eval = PREF_STEPS // PREF_EVAL_EVERY * 8     # Trainer.run_eval: 8
+    want = _pref_launches(phase, PREF_ACCUM * PREF_STEPS, n_eval)
+    print(f"   {phase}: launches {counts}, expected {want} (per micro-step "
+          f"and side: trained forward x2 under full remat, backward x1"
+          f"{', reference forward x1' if phase == 'dpo' else ''}; + "
+          f"{n_eval} eval batches)", flush=True)
+    run.check(counts == want, f"{phase} launch counts equal the path's")
+
+    log = work / phase / "logs" / "metrics.jsonl"
+    rows = [json.loads(line) for line in log.read_text().splitlines()]
+    train_rows = [r for r in rows if "train/loss_instant" in r]
+    eval_rows = [r for r in rows if "eval/loss" in r]
+    keys = (("train/acc", "train/reward_margin") if phase == "reward" else
+            ("train/preference_rate", "train/margin",
+             "train/policy_chosen_logp"))
+    series = {k: [r.get(k) for r in train_rows] for k in
+              ("train/loss_instant", "train/grad_norm") + keys}
+    series["eval"] = [v for r in eval_rows for k, v in r.items()
+                      if k.startswith("eval/")]
+    print(f"   {phase}: {json.dumps(series)}", flush=True)
+    run.check(len(train_rows) == PREF_STEPS and len(eval_rows) ==
+              PREF_STEPS // PREF_EVAL_EVERY and all(
+                  x is not None and np.isfinite(x)
+                  for v in series.values() for x in v),
+              f"{phase}: losses, grad norms, metrics and eval finite")
+    rate = "train/acc" if phase == "reward" else "train/preference_rate"
+    run.check(all(0.0 <= x <= 1.0 for x in series[rate]),
+              f"{phase}: {rate} in [0, 1]")
+    if phase == "dpo":
+        first = series["train/loss_instant"][0]
+        run.check(abs(first - math.log(2)) <= 1e-4 and
+                  series["train/margin"][0] == 0.0,
+                  f"DPO step 1 (policy = reference): loss {first:.7f} within "
+                  f"1e-4 of ln 2 and margin {series['train/margin'][0]} == 0")
+
+    t_parts = {"cli": t_cli}
+    t0 = time.perf_counter()
+    final = work / phase / "ckpt" / "final"
+    ckpt_gb = sum(f.stat().st_size for f in final.iterdir()) / 1e9
+    cfg = {"tokenizer": "byte", "max_seq_length": PREF_T}
+    if phase == "reward":
+        back = build_reward_model({"base_model_name_or_path": str(final),
+                                   **cfg}, device=dev).params
+    else:
+        back = load_causal_lm(str(final), cfg, device=dev).params
+    run.check(_params_equal(torch, back, trainer.params),
+              f"{phase}: final/ loads back (through "
+              f"{'build_reward_model' if phase == 'reward' else 'load_causal_lm'}"
+              f") equal to the trained parameters")
+    del back
+    save_s = trainer.last_save_s
+    shutil.rmtree(work / phase / "ckpt")
+
+    t_parts["load_back"] = time.perf_counter() - t0
+
+    # steady state: optimizer steps on the CLI's first batch
+    t_steps = time.perf_counter()
+    batch = _pref_batches(phase, work, 1)[0]
+    real = int(sum(batch[s]["attention_mask"].sum()
+                   for s in ("chosen", "rejected")))
+    positions = int(sum(batch[s]["attention_mask"].size
+                        for s in ("chosen", "rejected")))
+    trainer.step_on_batch(batch)                 # warm
+    torch.cuda.synchronize()
+    steps_s = []
+    for _ in range(3):
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.step_on_batch(batch)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+    step_s = statistics.median(steps_s)
+    per_step = native.launch_counts()
+    run.check(per_step == _pref_launches(phase, PREF_ACCUM, 0),
+              f"{phase}: one optimizer step launches "
+              f"{_pref_launches(phase, PREF_ACCUM, 0)} ({per_step})")
+    t_parts["steps"] = time.perf_counter() - t_steps
+    t1 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_on_batch(batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    events = prof.key_averages()        # built once: ~1e5 events a step
+    per_name, dev_ms = _device_ms(events, 1)
+    kinds = {}
+    for k, v in per_name.items():
+        kind = ("port attention kernels" if any(o in k for o in OUR_KERNELS)
+                else "matmul (cuBLAS)" if any(m in k for m in (
+                    "nvjet", "gemm", "xmma", "cutlass", "sm90_"))
+                else "elementwise / reduce / copy (PyTorch)")
+        kinds[kind] = kinds.get(kind, 0.0) + v
+    by_op = sorted(_device_ms(events, 1, ops=True)[0].items(),
+                   key=lambda kv: -kv[1])[:12]
+    host = _host_profile(events)
+    t_parts["profile"] = time.perf_counter() - t1
+    n_params = sum(t.numel() for t in trainer.leaves)
+    embed = trainer.params["embed"]["embedding"].numel()
+    tied = "lm_head" not in trainer.params
+    # parameters a position multiplies: the reward model never unembeds;
+    # a tied causal LM unembeds with its embedding table
+    n_mm = n_params - embed if (phase == "reward" or not tied) else n_params
+    flops = 6 * n_mm * positions + (2 * n_mm * positions
+                                    if phase == "dpo" else 0)
+    rep = dict(
+        cli_s=t_cli, part_s=t_parts, launches=counts,
+        launches_per_step=per_step,
+        series=series, n_params=n_params, n_params_per_position=n_mm,
+        rows_per_step=micro_rows * PREF_ACCUM,
+        positions_per_step=positions, real_tokens_per_step=real,
+        padded_positions_per_step=positions - real,
+        pad_share=(positions - real) / positions,
+        optimizer_step_ms=step_s * 1e3,
+        optimizer_steps_ms=[x * 1e3 for x in steps_s],
+        real_tokens_per_s=real / step_s,
+        model_flops_formula=("6 N per position of both sides (N = "
+                             "parameters a position multiplies)"
+                             + (" + 2 N per position for the reference "
+                                "forward" if phase == "dpo" else "")
+                             + ", attention excluded"),
+        model_flops_share=flops / step_s / BF16_FLOP_PER_S,
+        peak_mem_gib=peak, checkpoint_save_s=save_s, checkpoint_gb=ckpt_gb,
+        profiled_step_ms=prof_s * 1e3,
+        device_ms_per_step=dev_ms if dev_ms > 0 else "not measured",
+        busy_share=dev_ms / (prof_s * 1e3) if dev_ms > 0 else
+        "not measured",
+        device_ms_by_kind=kinds, device_ms_by_op=by_op, **host,
+        top=[(k[:60], v) for k, v in sorted(
+            per_name.items(), key=lambda kv: -kv[1])[:8]])
+    run.report[f"preference_{phase}"] = rep
+    print(f"   {phase} " + json.dumps(rep), flush=True)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        entry = run.kernels.setdefault(name, {})
+        entry[f"launches_{phase}"] = counts.get(name, 0)
+        entry.setdefault("preference_shape", {})[
+            f"launches_per_{phase}_step"] = per_step.get(name, 0)
+    del trainer, batch, prof
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host_profile(events):
+    """Host side of a profiled step (its ``key_averages()``): kernels
+    launched on the card, ATen ops called, and the ops taking the most
+    host time (self CPU ms)."""
+    from torch.autograd import DeviceType
+    kernels = ops = 0
+    host = {}
+    for ev in events:
+        if ev.device_type != DeviceType.CPU:
+            kernels += ev.count
+        elif ev.key.startswith("aten::"):
+            ops += ev.count
+            host[ev.key] = ev.self_cpu_time_total / 1e3
+    return dict(kernels_launched_per_step=kernels, aten_ops_per_step=ops,
+                host_ms_by_op=sorted(host.items(), key=lambda kv: -kv[1])[:12])
+
+
+def _pref_small(torch, dev, phase: str, layers: int, opt: dict, out_dir,
+                seed=SEED, dtype=None):
+    """(Trainer, model, loss factory) at ``layers`` of llama3.2-1b (full
+    width, flash, full remat): the reward model (dropout 0.1 as
+    configured) or a DPO policy over a frozen copy of itself, random
+    init from ``seed``."""
+    import dataclasses
+    from dla_tpu_torch.models.config import get_model_config
+    from dla_tpu_torch.models.reward import RewardModel
+    from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.training import train_dpo, train_reward
+    from dla_tpu_torch.training.trainer import Trainer
+    cfg = dataclasses.replace(get_model_config(
+        SFT_MODEL, max_seq_length=PREF_T, attention="flash", remat="full"),
+        num_layers=layers)
+    config = {"seed": SEED, "optimization": opt,
+              "logging": {"output_dir": str(out_dir), "log_dir": None}}
+    if phase == "reward":
+        model = RewardModel(cfg, dropout=0.1)
+        params = model.init(_gen(torch, dev, seed))
+        return Trainer(config=config, params=params,
+                       loss_fn=train_reward.make_reward_loss(model)), model
+    model = Transformer(cfg)
+    params = model.init(_gen(torch, dev, seed))
+    return Trainer(config=config, params=params, frozen=params,
+                   loss_fn=train_dpo.make_dpo_loss(model, model, 0.1)), model
+
+
+def _pref_opt(phase: str, **over):
+    """The phase config's optimization block at this run's cuts."""
+    return _config_opt(REWARD_CONFIG if phase == "reward" else DPO_CONFIG,
+                       **{"gradient_accumulation_steps": PREF_ACCUM,
+                          "max_train_steps": PREF_STEPS, **over})
+
+
+def _side_scores(torch, phase, model, params, sides, n_segments=0):
+    """Rewards or fused sequence log-probs of each side of a host batch,
+    in micro-batches of the phase's size, no grad."""
+    from dla_tpu_torch.ops.fused_ce import (model_fused_segment_logprob,
+                                            model_fused_sequence_logprob)
+    step = RM_B if phase == "reward" else DPO_B
+    out = {}
+    with torch.no_grad():
+        for side in ("chosen", "rejected"):
+            sub = {k: torch.from_numpy(v).to(params["final_norm"].device)
+                   for k, v in sides[side].items()}
+            parts = []
+            for i in range(0, sub["input_ids"].shape[0], step):
+                mb = {k: v[i:i + step] for k, v in sub.items()}
+                if phase == "reward":
+                    kw = ({"segment_ids": mb["segment_ids"],
+                           "n_segments": n_segments} if n_segments else {})
+                    parts.append(model.apply(params, mb["input_ids"],
+                                             mb["attention_mask"], **kw))
+                elif n_segments:
+                    parts.append(model_fused_segment_logprob(
+                        model, params, mb, n_segments))
+                else:
+                    parts.append(model_fused_sequence_logprob(
+                        model, params, mb["input_ids"],
+                        mb["attention_mask"]))
+            out[side] = torch.cat(parts).float()
+    return out
+
+
+def pref_checks_2_layers(run, torch, dev, work):
+    """At 2 layers of llama3.2-1b: each phase's loss gradients on the
+    kernel path against the path through the kernels' plain versions
+    (``PREF_GRAD_FACTOR`` x the bf16 noise floor: that path in bf16
+    against fp32), packed scores
+    against the same pairs unpacked (the same floor), an interrupted and
+    resumed reward run (dropout on) against the uninterrupted one (losses
+    equal), and a loss that falls on one repeated batch."""
+    rep = {}
+    run.report["preference_checks"] = rep
+    _run_parts(run, [(f"{phase} gradients and packing, 2 layers",
+                      lambda phase=phase: _pref_grads_and_packing(
+                          run, torch, dev, work, phase, rep))
+                     for phase in ("reward", "dpo")]
+               + [("reward resume, 2 layers",
+                   lambda: _pref_resume(run, torch, dev, work, rep))]
+               + [(f"{phase} repeated batch, 2 layers",
+                   lambda phase=phase: _pref_overfit(
+                       run, torch, dev, work, phase, rep))
+                  for phase in ("reward", "dpo")])
+
+
+# the kernel path and the path through the kernels' plain versions round
+# the forward's probabilities at different points (online softmax against
+# the running max, against the final max): two bf16 evaluations, each its
+# own distance from fp32, so up to sqrt(2) times that apart. A loss read
+# at one position per row (last-token pooling) averages none of it away.
+PREF_GRAD_FACTOR = math.sqrt(2.0)
+
+
+def _pref_grads_and_packing(run, torch, dev, work, phase, rep):
+    import dataclasses
+    import gc
+    from dla_tpu_torch.data.datasets import PreferenceDataset
+    from dla_tpu_torch.data.packing import PackedPreferenceDataset
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.models.reward import RewardModel
+    from dla_tpu_torch.models.transformer import Transformer
+    trainer, model = _pref_small(torch, dev, phase, 2, _pref_opt(phase),
+                                 work / f"g_{phase}")
+    params = trainer.params
+    cfg32 = dataclasses.replace(model.cfg, dtype="float32")
+    model32 = (RewardModel(cfg32, dropout=model.dropout)
+               if phase == "reward" else Transformer(cfg32))
+    rows = RM_B if phase == "reward" else DPO_B
+    batch = _pref_batches(phase, work, 1)[0]
+    mb = trainer._to_device({s: {k: v[:rows] for k, v in
+                                 batch[s].items()}
+                             for s in ("chosen", "rejected")})
+
+    def loss_of(m):
+        # the same dropout draws on every path: a generator seeded alike
+        from dla_tpu_torch.training import train_dpo, train_reward
+        if phase == "reward":
+            fn = train_reward.make_reward_loss(m)
+            return lambda v: fn(v, None, mb, _gen(torch, dev, 7))[0]
+        fn = train_dpo.make_dpo_loss(m, m, 0.1)
+        return lambda v: fn(v, params, mb, None)[0]
+    lk, gk = _grads(torch, loss_of(model), params)
+    with plain_kernels():
+        lp, gp = _grads(torch, loss_of(model), params)
+        l32, g32 = _grads(torch, loss_of(model32), params)
+    print(f"   {phase} 2-layer loss kernels {lk:.6f}, plain {lp:.6f}, "
+          f"plain fp32 {l32:.6f}", flush=True)
+    worst = _grad_floor_check(run, torch, f"{phase} loss, 2 layers",
+                              gk, gp, g32, PREF_GRAD_FACTOR)
+    rep[f"{phase}_grad_check"] = dict(loss_kernels=lk, loss_plain=lp,
+                                      loss_plain_fp32=l32,
+                                      rel_err_vs_floor=worst)
+    del gk, gp, g32
+
+    # packed vs unpacked scores of the same 8 pairs: the phase's
+    # shortest, so that rows hold several
+    recs = sorted(_pref_records(PREF_TRAIN_RECORDS, SEED),
+                  key=lambda r: len(r["prompt"]) + max(
+                      len(r["chosen"]), len(r["rejected"])))[:8]
+    ds = PreferenceDataset(ByteTokenizer(), PREF_T, records=recs)
+    unpacked = ds.collate([ds[i] for i in range(len(ds))])
+    packed_ds = PackedPreferenceDataset(ds, PREF_T)
+    packed = packed_ds.collate([packed_ds[i]
+                                for i in range(len(packed_ds))])
+    n_seg = packed_ds.max_pairs
+    alone = _side_scores(torch, phase, model, params, unpacked)
+    in_rows = _side_scores(torch, phase, model, params, packed, n_seg)
+    with plain_kernels():
+        alone32 = _side_scores(torch, phase, model32, params, unpacked)
+    res = {}
+    for side in ("chosen", "rejected"):
+        got = torch.stack([in_rows[side][r, j] for r, pairs in
+                           enumerate(packed_ds.rows)
+                           for j, _ in enumerate(pairs)])
+        order = [i for pairs in packed_ds.rows for i in pairs]
+        ref = alone[side][order]
+        e = (got - ref).norm().item() / max(ref.norm().item(), 1e-30)
+        floor = (alone[side] - alone32[side]).norm().item() / max(
+            alone32[side].norm().item(), 1e-30)
+        res[side] = (e, floor)
+        run.check(e <= floor, f"{phase} 2 layers: packed {side} "
+                  f"{'rewards' if phase == 'reward' else 'log-probs'} "
+                  f"({len(packed_ds)} rows of up to {n_seg} pairs) vs "
+                  f"the same 8 pairs unpacked: relative error {e:.3g} "
+                  f"<= bf16 floor {floor:.3g}")
+    rep[f"{phase}_packed_vs_unpacked"] = res
+    del trainer, model, model32, params, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _pref_resume(run, torch, dev, work, rep):
+    """Reward, interrupted at step 2 and resumed, against the
+    uninterrupted run (dropout on)."""
+    import gc
+    batches = _pref_batches("reward", work, PREF_STEPS)
+    a, _ = _pref_small(torch, dev, "reward", 2, _pref_opt("reward"),
+                       work / "a")
+    la = [a.step_on_batch(bt)[0] for bt in batches]
+    del a
+    b, _ = _pref_small(torch, dev, "reward", 2, _pref_opt("reward"),
+                       work / "r")
+    for bt in batches[:2]:
+        b.step_on_batch(bt)
+    b.save()
+    del b
+    c, _ = _pref_small(torch, dev, "reward", 2, _pref_opt("reward"),
+                       work / "r", seed=SEED + 5)
+    c.try_resume()
+    lc = [c.step_on_batch(bt)[0] for bt in batches[2:]]
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"   reward 2-layer losses uninterrupted {la}, resumed steps 3-4 "
+          f"{lc}", flush=True)
+    rep["reward_resume"] = dict(uninterrupted=la, resumed=lc)
+    run.check(lc == la[2:], "reward (dropout 0.1): resumed step 3-4 losses "
+              "equal the uninterrupted run's")
+
+
+def _pref_overfit(run, torch, dev, work, phase, rep):
+    """Constant lr 1e-4 on one repeated micro-batch: the loss falls."""
+    import gc
+    rows = RM_B if phase == "reward" else DPO_B
+    d, _ = _pref_small(torch, dev, phase, 2, _pref_opt(
+        phase, learning_rate=1e-4, lr_scheduler="constant",
+        warmup_steps=0, gradient_accumulation_steps=1,
+        micro_batch_size=rows), work / f"d_{phase}")
+    one = _pref_batches(phase, work, 1)[0]
+    one = {s: {k: v[:rows] for k, v in one[s].items()}
+           for s in ("chosen", "rejected")}
+    ld = [d.step_on_batch(one)[0] for _ in range(10)]
+    del d
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"   {phase} 2-layer, lr 1e-4, one micro-batch x 10 steps: "
+          f"losses {ld}", flush=True)
+    rep[f"{phase}_overfit"] = ld
+    if phase == "reward":
+        run.check(ld[-1] < 0.5 * ld[0], f"reward loss falls on a "
+                  f"repeated batch ({ld[0]:.4f} -> {ld[-1]:.4f}, "
+                  f"below half)")
+    else:
+        run.check(ld[-1] < ld[0] - 0.01, f"DPO loss falls on a "
+                  f"repeated batch ({ld[0]:.4f} -> {ld[-1]:.4f}, by "
+                  f"more than 0.01)")
 
 
 if __name__ == "__main__":

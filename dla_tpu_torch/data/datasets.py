@@ -67,22 +67,31 @@ def pad_batch(examples: Sequence[Dict[str, np.ndarray]], pad_token_id: int,
     return out
 
 
-class InstructionDataset:
+class _RecordDataset:
+    """Records from a list or a JSONL path, tokenized on access."""
+
+    def __init__(self, tokenizer: Tokenizer, max_length: int,
+                 path: Optional[str] = None,
+                 records: Optional[List[Dict[str, Any]]] = None):
+        if records is None and path is None:
+            raise ValueError(f"{type(self).__name__} needs records or a path")
+        self.records = records if records is not None else read_jsonl(path)
+        self.tokenizer = tokenizer
+        self.max_length = max_length
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+
+class InstructionDataset(_RecordDataset):
     """SFT examples: {prompt, response} records with prompt-masked
     labels."""
 
     def __init__(self, tokenizer: Tokenizer, max_length: int,
                  mask_prompt: bool = True, path: Optional[str] = None,
                  records: Optional[List[Dict[str, Any]]] = None):
-        if records is None and path is None:
-            raise ValueError("InstructionDataset needs records or a path")
-        self.records = records if records is not None else read_jsonl(path)
-        self.tokenizer = tokenizer
-        self.max_length = max_length
+        super().__init__(tokenizer, max_length, path, records)
         self.mask_prompt = mask_prompt
-
-    def __len__(self) -> int:
-        return len(self.records)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         rec = self.records[idx]
@@ -93,3 +102,21 @@ class InstructionDataset:
     def collate(self, batch: Sequence[Dict[str, np.ndarray]]
                 ) -> Dict[str, np.ndarray]:
         return pad_batch(batch, self.tokenizer.pad_token_id, self.max_length)
+
+
+class PreferenceDataset(_RecordDataset):
+    """Reward-model and DPO pairs: {prompt, chosen, rejected} records ->
+    {"chosen": example, "rejected": example}, each side prompt-masked."""
+
+    SIDES = ("chosen", "rejected")
+
+    def __getitem__(self, idx: int) -> Dict[str, Dict[str, np.ndarray]]:
+        rec = self.records[idx]
+        return {side: encode_prompt_response(
+            self.tokenizer, rec["prompt"], rec[side], self.max_length,
+            mask_prompt=True) for side in self.SIDES}
+
+    def collate(self, batch) -> Dict[str, Dict[str, np.ndarray]]:
+        return {side: pad_batch([ex[side] for ex in batch],
+                                self.tokenizer.pad_token_id, self.max_length)
+                for side in self.SIDES}

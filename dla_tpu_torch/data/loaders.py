@@ -1,13 +1,15 @@
-"""Instruction records from local JSONL, alone or as a weighted mixture
-(``dla_tpu.data.loaders``, the SFT part). HF-hub sources need the network
-and the ``datasets`` package and raise."""
+"""Instruction and preference records from local JSONL, alone or as a
+weighted mixture (``dla_tpu.data.loaders``, the SFT and preference
+parts). HF-hub sources need the network and the ``datasets`` package and
+raise."""
 from __future__ import annotations
 
 import random
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Tuple
 
-from dla_tpu_torch.data.datasets import InstructionDataset
+from dla_tpu_torch.data.datasets import InstructionDataset, PreferenceDataset
 from dla_tpu_torch.data.jsonl import read_jsonl
+from dla_tpu_torch.data.packing import pack_preference_splits
 from dla_tpu_torch.data.tokenizers import Tokenizer
 
 # keys of the outer data config a mixture entry never inherits: an entry
@@ -61,6 +63,23 @@ def _load_mixture(cfg: Dict[str, Any], split: str, loader
     return out
 
 
+def _local_records(cfg: Dict[str, Any], split: str,
+                   train_keys: Tuple[str, ...]) -> List[Dict[str, Any]]:
+    """Records of ``<split>_path`` (for train, else the first of
+    ``train_keys`` set), cut to ``limit``."""
+    if cfg.get("source", "local") == "hf":
+        raise NotImplementedError(
+            "data source 'hf' is not ported (it needs the network and the "
+            "datasets package; ROADMAP.md §1): point data.train_path / "
+            "eval_path at local JSONL")
+    path = cfg.get(f"{split}_path")
+    if path is None and split == "train":
+        path = next((cfg[k] for k in train_keys if cfg.get(k)), None)
+    if path is None:
+        raise ValueError(f"No {split}_path in data config")
+    return _apply_limit(read_jsonl(path), cfg.get("limit"))
+
+
 def load_instruction_records(cfg: Dict[str, Any],
                              split: str = "train") -> List[Dict[str, Any]]:
     """{prompt, response} records from ``<split>_path`` (``path`` for
@@ -68,17 +87,17 @@ def load_instruction_records(cfg: Dict[str, Any],
     split only (eval stays the outer config's held-out file)."""
     if cfg.get("mixture") and split == "train":
         return _load_mixture(cfg, split, load_instruction_records)
-    if cfg.get("source", "local") == "hf":
-        raise NotImplementedError(
-            "data source 'hf' is not ported (it needs the network and the "
-            "datasets package; ROADMAP.md §3): point data.train_path / "
-            "eval_path at local JSONL")
-    path = cfg.get(f"{split}_path")
-    if path is None and split == "train":
-        path = cfg.get("path")
-    if path is None:
-        raise ValueError(f"No {split}_path in data config")
-    return _apply_limit(read_jsonl(path), cfg.get("limit"))
+    return _local_records(cfg, split, ("path",))
+
+
+def load_preference_records(cfg: Dict[str, Any],
+                            split: str = "train") -> List[Dict[str, Any]]:
+    """{prompt, chosen, rejected} records from ``<split>_path`` (for
+    train, else ``path`` or ``preference_path``); ``data.mixture`` as for
+    instruction records."""
+    if cfg.get("mixture") and split == "train":
+        return _load_mixture(cfg, split, load_preference_records)
+    return _local_records(cfg, split, ("path", "preference_path"))
 
 
 def build_instruction_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,
@@ -90,3 +109,31 @@ def build_instruction_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,
         mask_prompt=bool(cfg.get("mask_prompt", True)),
         records=load_instruction_records(cfg, split),
     )
+
+
+def build_preference_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,
+                             split: str = "train") -> PreferenceDataset:
+    return PreferenceDataset(
+        tokenizer=tokenizer,
+        max_length=int(cfg.get("max_length",
+                               cfg.get("max_seq_length", 1024))),
+        records=load_preference_records(cfg, split),
+    )
+
+
+def build_preference_splits(config: Dict[str, Any], tokenizer: Tokenizer,
+                            max_seq_length: int):
+    """The preference phases' data: the train split, the eval split when
+    ``data.eval_path`` is set, both packed when ``data.packing`` is.
+    Returns (train, eval or None, n_segments; 0 when unpacked)."""
+    cfg = {**config.get("data", {}), "max_seq_length": max_seq_length}
+    train = build_preference_dataset(cfg, tokenizer, "train")
+    evl = (build_preference_dataset(cfg, tokenizer, "eval")
+           if cfg.get("eval_path") else None)
+    if not cfg.get("packing"):
+        return train, evl, 0
+    train, evl, n = pack_preference_splits(train, evl, max_seq_length)
+    print(f"[dla_tpu_torch] packing: {len(train)} pair-rows, "
+          f"{train.packing_efficiency():.1%} token efficiency, <= {n} "
+          f"pairs/row", flush=True)
+    return train, evl, n

@@ -1,5 +1,5 @@
 """Sequence packing: fill fixed-length rows with several examples
-(``dla_tpu.data.packing``, the instruction part). Packed rows carry
+(``dla_tpu.data.packing``, the instruction and preference parts). Packed rows carry
 ``segment_ids`` (1, 2, ... per example, 0 = padding); the transformer
 masks cross-segment attention and restarts positions per segment, so
 packing is loss-equivalent to unpacked batches. Placement is the JAX
@@ -7,7 +7,7 @@ package's greedy first-fit, in Python (its native packer must match the
 same Python loop bit for bit)."""
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Any, Dict, List, Sequence
 
 import numpy as np
 
@@ -66,24 +66,8 @@ class PackedInstructionDataset:
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
         L = self.max_length
-        input_ids = np.full(L, self.pad_token_id, np.int32)
-        labels = np.full(L, IGNORE_INDEX, np.int32)
-        attention_mask = np.zeros(L, np.int32)
-        segment_ids = np.zeros(L, np.int32)  # 0 = padding segment
-        pos = 0
-        for si, i in enumerate(self.rows[idx], start=1):
-            ex = {k: v[:L] for k, v in self.base[i].items()}
-            n = ex["input_ids"].shape[0]
-            input_ids[pos:pos + n] = ex["input_ids"]
-            labels[pos:pos + n] = ex["labels"]
-            # the next-token shift would otherwise train segment i's last
-            # token to predict segment i+1's first token
-            labels[pos] = IGNORE_INDEX
-            attention_mask[pos:pos + n] = 1
-            segment_ids[pos:pos + n] = si
-            pos += n
-        return {"input_ids": input_ids, "attention_mask": attention_mask,
-                "labels": labels, "segment_ids": segment_ids}
+        return _pack_row([{k: v[:L] for k, v in self.base[i].items()}
+                          for i in self.rows[idx]], L, self.pad_token_id)
 
     def collate(self, batch: Sequence[Dict[str, np.ndarray]]
                 ) -> Dict[str, np.ndarray]:
@@ -93,3 +77,115 @@ class PackedInstructionDataset:
         """Fraction of token slots holding real tokens (1.0 = perfect)."""
         total = len(self.rows) * self.max_length
         return int(self.lengths.sum()) / max(total, 1)
+
+
+def _pack_row(exs: Sequence[Dict[str, np.ndarray]], max_length: int,
+              pad_token_id: int) -> Dict[str, np.ndarray]:
+    """Examples laid end to end in one row: segment i + 1 holds example i
+    (0 = padding); each segment's first label is masked, else the
+    next-token shift would train the last token of one example to
+    predict the first of the next."""
+    L = max_length
+    out = {"input_ids": np.full(L, pad_token_id, np.int32),
+           "attention_mask": np.zeros(L, np.int32),
+           "labels": np.full(L, IGNORE_INDEX, np.int32),
+           "segment_ids": np.zeros(L, np.int32)}
+    pos = 0
+    for si, ex in enumerate(exs, start=1):
+        n = ex["input_ids"].shape[0]
+        out["input_ids"][pos:pos + n] = ex["input_ids"]
+        out["labels"][pos:pos + n] = ex["labels"]
+        out["labels"][pos] = IGNORE_INDEX
+        out["attention_mask"][pos:pos + n] = 1
+        out["segment_ids"][pos:pos + n] = si
+        pos += n
+    return out
+
+
+class PackedPreferenceDataset:
+    """Preference pairs packed jointly into rows of ``max_length`` tokens
+    per side: pair i goes into the first open row where its chosen side
+    fits the chosen row and its rejected side the rejected row, so
+    segment j of a chosen row is the partner of segment j of the same
+    rejected row. A row closes once either side cannot take
+    ``CLOSE_MARGIN`` more tokens. Only the lengths are kept; a row's
+    pairs are tokenized again when it is read.
+
+    Items: ``chosen`` / ``rejected`` {input_ids, attention_mask, labels,
+    segment_ids} [L] each, and ``pair_mask`` [max_pairs] (1.0 where pair
+    j exists)."""
+
+    CLOSE_MARGIN = 8
+
+    def __init__(self, base, max_length: int):
+        self.max_length = max_length
+        self.pad_token_id = base.tokenizer.pad_token_id
+        self.base = base
+        lens = np.zeros((len(base), 2), np.int32)
+        for i in range(len(base)):
+            ex = base[i]
+            lens[i] = [min(int(ex[side]["input_ids"].shape[0]), max_length)
+                       for side in ("chosen", "rejected")]
+        self.len_c, self.len_r = lens[:, 0], lens[:, 1]
+        rows: List[List[int]] = []
+        fill: List[List[int]] = []
+        open_rows: List[int] = []
+        for i, (lc, lr) in enumerate(lens.tolist()):
+            for r in open_rows:
+                if (fill[r][0] + lc <= max_length
+                        and fill[r][1] + lr <= max_length):
+                    rows[r].append(i)
+                    fill[r][0] += lc
+                    fill[r][1] += lr
+                    break
+            else:
+                rows.append([i])
+                fill.append([lc, lr])
+                open_rows.append(len(rows) - 1)
+            open_rows = [r for r in open_rows
+                         if max(fill[r]) + self.CLOSE_MARGIN <= max_length]
+        self.rows = rows
+        self.max_pairs = max(len(r) for r in rows) if rows else 1
+
+    def __len__(self) -> int:
+        return len(self.rows)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        L = self.max_length
+        exs = [self.base[i] for i in self.rows[idx]]
+        pair_mask = np.zeros(self.max_pairs, np.float32)
+        pair_mask[:len(exs)] = 1.0
+        out: Dict[str, Any] = {
+            side: _pack_row([{k: v[:L] for k, v in e[side].items()}
+                             for e in exs], L, self.pad_token_id)
+            for side in ("chosen", "rejected")}
+        out["pair_mask"] = pair_mask
+        return out
+
+    def collate(self, batch) -> Dict[str, Any]:
+        out: Dict[str, Any] = {
+            side: {k: np.stack([ex[side][k] for ex in batch])
+                   for k in batch[0][side]}
+            for side in ("chosen", "rejected")}
+        out["pair_mask"] = np.stack([ex["pair_mask"] for ex in batch])
+        return out
+
+    def packing_efficiency(self) -> float:
+        """Fraction of both sides' token slots holding real tokens."""
+        total = 2 * len(self.rows) * self.max_length
+        return (int(self.len_c.sum()) + int(self.len_r.sum())) / max(total, 1)
+
+
+def pack_preference_splits(train_ds, eval_ds, max_length: int):
+    """Pack the train and (optional) eval preference splits with one
+    shared pair width, so one ``n_segments`` serves both. Returns
+    (packed_train, packed_eval or None, n_segments)."""
+    train_p = PackedPreferenceDataset(train_ds, max_length)
+    eval_p = (PackedPreferenceDataset(eval_ds, max_length)
+              if eval_ds is not None else None)
+    n = max([train_p.max_pairs]
+            + ([eval_p.max_pairs] if eval_p is not None else []))
+    train_p.max_pairs = n
+    if eval_p is not None:
+        eval_p.max_pairs = n
+    return train_p, eval_p, n

@@ -1,5 +1,5 @@
-"""Fused unembedding + log-prob gather (``dla_tpu.ops.fused_ce``, the part
-SFT uses): never holds [B, T, V] logits.
+"""Fused unembedding + log-prob gather (``dla_tpu.ops.fused_ce``, the parts
+SFT and DPO use): never holds [B, T, V] logits.
 
 A ``torch.autograd.Function`` walks the flattened rows in chunks: each
 [chunk, V] logit tile is computed in fp32 straight out of the matmul's
@@ -117,18 +117,90 @@ def fused_cross_entropy_loss(
     return loss, n
 
 
-def model_fused_ce(model, params, batch, chunk: int = DEFAULT_CHUNK
-                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """hidden_states -> unembed_params -> fused CE, the SFT recipe.
-    Returns (loss, n_valid_tokens)."""
+def _unembed_w(model, params) -> torch.Tensor:
+    """The unembedding [D, V] in activation dtype; refuses what the fused
+    path does not compute yet."""
     w, bias = model.unembed_params(params)
     if bias is not None or model.cfg.final_logit_softcap:
         raise NotImplementedError(
             "the fused CE takes no lm_head bias or final-logit softcap yet; "
             "they arrive with the architecture-branches slice listed in "
             "ROADMAP.md")
+    return w
+
+
+def model_fused_ce(model, params, batch, chunk: int = DEFAULT_CHUNK
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """hidden_states -> unembed_params -> fused CE, the SFT recipe.
+    Returns (loss, n_valid_tokens)."""
+    w = _unembed_w(model, params)
     h = model.hidden_states(
         params, batch["input_ids"],
         attention_mask=batch.get("attention_mask"),
         segment_ids=batch.get("segment_ids"))
     return fused_cross_entropy_loss(h, w, batch["labels"], chunk=chunk)
+
+
+def fused_sequence_logprob_mean(
+    hidden: torch.Tensor,          # [B, T, D]
+    w: torch.Tensor,               # [D, V]
+    input_ids: torch.Tensor,       # [B, T]
+    mask: torch.Tensor,            # [B, T] 1 = real token
+    chunk: int = DEFAULT_CHUNK,
+) -> torch.Tensor:
+    """Length-normalized mean per-token log p of each sequence, [B] fp32
+    (``losses.sequence_logprob_mean`` of ``hidden @ w``), the DPO
+    objective."""
+    m = mask[:, 1:].float()
+    logp = fused_token_logprobs(hidden[:, :-1, :], w, input_ids[:, 1:],
+                                chunk)
+    return (logp * m).sum(-1) / (m.sum(-1) + 1e-8)
+
+
+def fused_segment_logprob_mean(
+    hidden: torch.Tensor,          # [B, T, D]
+    w: torch.Tensor,               # [D, V]
+    input_ids: torch.Tensor,       # [B, T]
+    mask: torch.Tensor,            # [B, T] 1 = real token
+    segment_ids: torch.Tensor,     # [B, T] packed ids from 1 (0 = pad)
+    n_segments: int,
+    chunk: int = DEFAULT_CHUNK,
+) -> torch.Tensor:
+    """Mean per-token log p of each packed segment, [B, n_segments] fp32:
+    each segment as fused_sequence_logprob_mean would score it alone in
+    a row (positions restart per segment). A target counts only when the
+    hidden state predicting it lies in its own segment; absent segments
+    read 0."""
+    seg_t = segment_ids[:, 1:]
+    m = (mask[:, 1:].float() * (seg_t == segment_ids[:, :-1])
+         * (seg_t > 0))
+    logp = fused_token_logprobs(hidden[:, :-1, :], w, input_ids[:, 1:],
+                                chunk)                       # [B, T-1]
+    oh = (seg_t[:, :, None] == torch.arange(
+        1, n_segments + 1, device=seg_t.device)).float()     # [B, T-1, S]
+    num = torch.einsum("bt,bts->bs", logp * m, oh)
+    den = torch.einsum("bt,bts->bs", m, oh)
+    return num / (den + 1e-8)
+
+
+def model_fused_sequence_logprob(model, params, input_ids, attention_mask,
+                                 chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """hidden_states -> unembed_params -> fused sequence log p, [B] fp32:
+    the per-sequence score of DPO's four forwards."""
+    w = _unembed_w(model, params)
+    h = model.hidden_states(params, input_ids, attention_mask=attention_mask)
+    return fused_sequence_logprob_mean(h, w, input_ids, attention_mask,
+                                       chunk)
+
+
+def model_fused_segment_logprob(model, params, sub, n_segments: int,
+                                chunk: int = DEFAULT_CHUNK) -> torch.Tensor:
+    """Per-segment log p of one side of a packed preference batch (``sub``:
+    input_ids / attention_mask / segment_ids), [B, n_segments] fp32."""
+    w = _unembed_w(model, params)
+    h = model.hidden_states(params, sub["input_ids"],
+                            attention_mask=sub["attention_mask"],
+                            segment_ids=sub["segment_ids"])
+    return fused_segment_logprob_mean(
+        h, w, sub["input_ids"], sub["attention_mask"], sub["segment_ids"],
+        n_segments, chunk)

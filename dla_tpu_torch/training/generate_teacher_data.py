@@ -8,17 +8,21 @@ arguments:
       --prompts_path prompts.jsonl --output_path rollouts.jsonl
 
 Batch sampling with temperature/top-p, the prompt stripped from the
-response, streamed JSONL ``{prompt, teacher_response}``. Reward scoring
-(``--reward_model_path``) and speculative decoding
-(``--draft_model_name_or_path``) are not ported yet and raise.
+response, streamed JSONL ``{prompt, teacher_response}``; with
+``--reward_model_path`` a reward model (``build_reward_model``) scores
+each generated sequence (prompt + response) and the record gains a
+``reward``. Speculative decoding (``--draft_model_name_or_path``) is not
+ported yet and raises.
 """
 from __future__ import annotations
 
 import argparse
 
+import torch
+
 from dla_tpu_torch.data.jsonl import append_jsonl, read_jsonl
 from dla_tpu_torch.generation.engine import GenerationConfig, GenerationEngine
-from dla_tpu_torch.training.model_io import load_causal_lm
+from dla_tpu_torch.training.model_io import build_reward_model, load_causal_lm
 from dla_tpu_torch.training.utils import seed_everything
 
 PROMPT_TEMPLATE = "{prompt}\n\n"
@@ -47,10 +51,6 @@ def parse_args(argv=None) -> argparse.Namespace:
 
 def main(argv=None, device="cuda") -> None:
     args = parse_args(argv)
-    if args.reward_model_path:
-        raise NotImplementedError(
-            "--reward_model_path: the reward model is not ported yet "
-            "(ROADMAP.md)")
     if args.draft_model_name_or_path:
         raise NotImplementedError(
             "--draft_model_name_or_path: speculative decoding is not ported "
@@ -63,6 +63,13 @@ def main(argv=None, device="cuda") -> None:
                            temperature=args.temperature, top_p=args.top_p,
                            do_sample=args.temperature > 0)
     engine = GenerationEngine(bundle.model, bundle.tokenizer, gen)
+    rm = None
+    if args.reward_model_path:
+        # a causal-LM checkpoint warm-starts a fresh head from this stream
+        rm = build_reward_model(
+            {"base_model_name_or_path": args.reward_model_path, **model_cfg},
+            torch.Generator(device=device).manual_seed(args.seed + 1),
+            device=device)
 
     records = read_jsonl(args.prompts_path, shard_index=args.shard_index,
                          shard_count=args.shard_count)
@@ -81,11 +88,18 @@ def main(argv=None, device="cuda") -> None:
         # pad the tail chunk to a full batch; padded rows are dropped
         padded = chunk + [chunk[-1]] * (args.batch_size - len(chunk))
         templated = [PROMPT_TEMPLATE.format(prompt=p) for p in padded]
-        texts, _ = engine.generate_text(
+        texts, out = engine.generate_text(
             bundle.params, templated, args.max_prompt_length, generator)
-        for prompt, response in zip(chunk, texts):
-            append_jsonl(args.output_path,
-                         {"prompt": prompt, "teacher_response": response})
+        rewards = None
+        if rm is not None:
+            with torch.no_grad():
+                rewards = rm.model.apply(rm.params, out["sequences"],
+                                         out["sequence_mask"]).tolist()
+        for i, (prompt, response) in enumerate(zip(chunk, texts)):
+            rec = {"prompt": prompt, "teacher_response": response}
+            if rewards is not None:
+                rec["reward"] = float(rewards[i])
+            append_jsonl(args.output_path, rec)
         n_done += len(chunk)
         print(f"[dla_tpu_torch] {n_done}/{len(prompts)} rollouts written",
               flush=True)

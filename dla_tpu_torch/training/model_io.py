@@ -1,10 +1,11 @@
-"""Model resolution: checkpoint path / preset name -> ModelBundle.
+"""Model resolution: checkpoint path / preset name -> ModelBundle
+(``dla_tpu.training.model_io``).
 
-The causal-LM half of ``dla_tpu.training.model_io``: the same config keys
-accept a checkpoint directory written by the JAX package (or its
-``latest`` pointer) or a registry preset / HF repo id (fresh random
-init). Local HF weight directories and the reward model are not ported
-yet and raise.
+The same config keys accept a checkpoint directory written by either
+package (or its ``latest`` pointer) or a registry preset / HF repo id
+(fresh random init), for a causal LM (``load_causal_lm``) or a reward
+model (``build_reward_model``). Local HF weight directories are not
+ported yet and raise.
 """
 from __future__ import annotations
 
@@ -20,13 +21,14 @@ from dla_tpu_torch.checkpoint.checkpointer import (
 )
 from dla_tpu_torch.data.tokenizers import ByteTokenizer, Tokenizer, load_tokenizer
 from dla_tpu_torch.models.config import ModelConfig, get_model_config
+from dla_tpu_torch.models.reward import RewardModel
 from dla_tpu_torch.models.transformer import Transformer
 from dla_tpu_torch.models.weights import params_from_jax
 
 
 @dataclasses.dataclass
 class ModelBundle:
-    model: Transformer
+    model: Any          # Transformer or RewardModel
     params: Any
     tokenizer: Tokenizer
     config: ModelConfig
@@ -80,6 +82,54 @@ def _arch_overrides(model_cfg: Dict[str, Any]) -> Dict[str, Any]:
     return out
 
 
+def _checkpoint_tree(name: str, model_cfg: Dict[str, Any]):
+    """(host numpy params, ModelConfig with the config's overrides,
+    tokenizer) of a checkpoint."""
+    tree, aux = load_tree_numpy(name, prefix="params")
+    mc = aux.get("model_config")
+    if mc is None:
+        raise ValueError(
+            f"checkpoint {name} lacks model_config aux; cannot rebuild the "
+            "architecture")
+    cfg = ModelConfig.from_dict({**mc, **_arch_overrides(model_cfg)})
+    return tree, cfg, _tokenizer_for(name, model_cfg, aux)
+
+
+def _device_params(tree, dtype: torch.dtype, device) -> Any:
+    params = params_from_jax(tree, device)
+    if dtype != torch.float32:   # bf16 leaves were widened
+        params = _cast_floats(params, dtype)
+    return params
+
+
+def _preset(name: str, model_cfg: Dict[str, Any],
+            generator: Optional[torch.Generator], device: torch.device):
+    """(ModelConfig, tokenizer) of a registry preset, its vocabulary grown
+    to the tokenizer's; checks that ``generator`` can initialise it on
+    ``device``."""
+    p = Path(name)
+    if p.is_dir() and (p / "config.json").is_file():
+        raise NotImplementedError(
+            f"{name}: HF weight-directory import is not ported yet "
+            "(ROADMAP.md); load a dla_tpu checkpoint or a preset")
+    cfg = get_model_config(name, **_arch_overrides(model_cfg))
+    tok = _tokenizer_for(name, model_cfg)
+    if getattr(tok, "vocab_size", cfg.vocab_size) > cfg.vocab_size:
+        cfg = dataclasses.replace(cfg, vocab_size=int(tok.vocab_size))
+    _check_generator(generator, device)
+    return cfg, tok
+
+
+def _check_generator(generator: Optional[torch.Generator],
+                     device: torch.device) -> None:
+    if generator is None:
+        raise ValueError("a preset needs a torch.Generator to initialise "
+                         "its parameters")
+    if generator.device.type != device.type:
+        raise ValueError(f"generator on {generator.device} cannot "
+                         f"initialise parameters on {device}")
+
+
 def load_causal_lm(name_or_path: str, model_cfg: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    device="cuda") -> ModelBundle:
@@ -87,40 +137,52 @@ def load_causal_lm(name_or_path: str, model_cfg: Dict[str, Any],
     on ``device``; a preset is initialised from ``generator``, which must
     live on that device."""
     device = torch.device(device)
-    overrides = _arch_overrides(model_cfg)
     if is_checkpoint_path(name_or_path):
-        tree, aux = load_tree_numpy(name_or_path, prefix="params")
-        mc = aux.get("model_config")
-        if mc is None:
-            raise ValueError(
-                f"checkpoint {name_or_path} lacks model_config aux; "
-                "cannot rebuild the architecture")
-        cfg = ModelConfig.from_dict({**mc, **overrides})
+        tree, cfg, tok = _checkpoint_tree(name_or_path, model_cfg)
         model = Transformer(cfg)
-        params = params_from_jax(tree, device)
-        if model.pdtype != torch.float32:   # bf16 leaves were widened
-            params = _cast_floats(params, model.pdtype)
-        tok = _tokenizer_for(name_or_path, model_cfg, aux)
-        return ModelBundle(model, params, tok, cfg)
-
-    p = Path(name_or_path)
-    if p.is_dir() and (p / "config.json").is_file():
-        raise NotImplementedError(
-            f"{name_or_path}: HF weight-directory import is not ported yet "
-            "(ROADMAP.md); load a dla_tpu checkpoint or a preset")
-    cfg = get_model_config(name_or_path, **overrides)
-    tok = _tokenizer_for(name_or_path, model_cfg)
-    if getattr(tok, "vocab_size", cfg.vocab_size) > cfg.vocab_size:
-        cfg = dataclasses.replace(cfg, vocab_size=int(tok.vocab_size))
+        return ModelBundle(model, _device_params(tree, model.pdtype, device),
+                           tok, cfg)
+    cfg, tok = _preset(name_or_path, model_cfg, generator, device)
     model = Transformer(cfg)
-    if generator is None:
-        raise ValueError("load_causal_lm: a preset needs a torch.Generator "
-                         "to initialise its parameters")
-    if generator.device.type != device.type:
-        raise ValueError(f"generator on {generator.device} cannot "
-                         f"initialise parameters on {device}")
-    params = model.init(generator)
-    return ModelBundle(model, params, tok, cfg)
+    return ModelBundle(model, model.init(generator), tok, cfg)
+
+
+def build_reward_model(model_cfg: Dict[str, Any],
+                       generator: Optional[torch.Generator] = None,
+                       device="cuda") -> ModelBundle:
+    """Reward model from ``model.base_model_name_or_path`` (or
+    ``model_name_or_path``) with ``model.pooling`` / ``model.dropout``:
+    a reward checkpoint as saved; a causal-LM checkpoint as a warm start
+    (its ``lm_head`` dropped, a fresh head drawn from ``generator``); or
+    a preset initialised from ``generator``."""
+    device = torch.device(device)
+    name = (model_cfg.get("base_model_name_or_path")
+            or model_cfg.get("model_name_or_path"))
+    pooling = model_cfg.get("pooling", "last_token")
+    dropout = float(model_cfg.get("dropout", 0.0))
+    if is_checkpoint_path(name):
+        tree, cfg, tok = _checkpoint_tree(name, model_cfg)
+        rm = RewardModel(cfg, pooling=pooling, dropout=dropout)
+        warm = "reward_head" not in tree
+        if warm:
+            tree.pop("lm_head", None)
+            _check_generator(generator, device)
+        params = _device_params(tree, rm.backbone.pdtype, device)
+        if warm:
+            params["reward_head"] = rm.init_head(generator)
+        return ModelBundle(rm, params, tok, cfg)
+    cfg, tok = _preset(name, model_cfg, generator, device)
+    rm = RewardModel(cfg, pooling=pooling, dropout=dropout)
+    return ModelBundle(rm, rm.init(generator), tok, cfg)
+
+
+def model_aux(bundle: ModelBundle, tokenizer_name: Optional[str] = None
+              ) -> Dict[str, Any]:
+    """The aux a checkpoint carries to describe itself."""
+    out: Dict[str, Any] = {"model_config": bundle.config.to_dict()}
+    if tokenizer_name:
+        out["tokenizer"] = tokenizer_name
+    return out
 
 
 def _cast_floats(tree, dtype: torch.dtype):

@@ -21,13 +21,14 @@ from dla_tpu_torch.data.loaders import build_instruction_dataset
 from dla_tpu_torch.data.packing import PackedInstructionDataset
 from dla_tpu_torch.ops.fused_ce import model_fused_ce
 from dla_tpu_torch.training.config import config_from_args, make_arg_parser
-from dla_tpu_torch.training.model_io import load_causal_lm
+from dla_tpu_torch.training.model_io import load_causal_lm, model_aux
 from dla_tpu_torch.training.trainer import Trainer
 from dla_tpu_torch.training.utils import seed_everything
 
 
 def make_sft_loss(model):
-    def loss_fn(params, batch):
+    def loss_fn(params, frozen, batch, rng):
+        del frozen, rng
         loss, n_tokens = model_fused_ce(model, params, batch)
         return loss, {"ce": loss, "tokens": n_tokens}
     return loss_fn
@@ -75,12 +76,9 @@ def main(argv=None, device="cuda") -> Trainer:
             return iter(ShardedBatchIterator(eval_ds, trainer.micro,
                                              shuffle=False))
 
-    aux: Dict[str, Any] = {"model_config": bundle.config.to_dict()}
-    if model_cfg.get("tokenizer"):
-        aux["tokenizer"] = model_cfg["tokenizer"]
     trainer.fit(train_it, eval_iter_fn=eval_iter_fn,
                 data_state=train_it.state_dict, resume=args.resume,
-                extra_aux=aux)
+                extra_aux=model_aux(bundle, model_cfg.get("tokenizer")))
     return trainer
 
 

@@ -1,7 +1,13 @@
 """The training loop every phase shares (``dla_tpu.training.Trainer``),
 one device.
 
-A phase supplies ``loss_fn(params, batch) -> (loss, metrics)`` and the
+A phase supplies ``loss_fn(params, frozen, batch, rng) -> (loss,
+metrics)``, the JAX Trainer's contract: ``params`` the trained tree (its
+per-layer views, below), ``frozen`` a tree that is read but not trained
+(DPO's reference model; None when there is none), ``batch`` a micro-batch
+of tensors, flat or nested (``{"chosen": {...}, "rejected": {...},
+"pair_mask": ...}``), and ``rng`` a ``torch.Generator`` for dropout.
+``eval_fn`` has the same signature and defaults to ``loss_fn``. The
 Trainer provides:
 
 - one optimizer step per global batch of ``micro_batch_size *
@@ -10,13 +16,22 @@ Trainer provides:
   backward, gradients sum in the fp32 ``.grad`` of every leaf and are
   divided by ``accum``; the step's loss is the mean of the per-micro
   token-mean losses (not a token-weighted mean over the step);
+- the random stream of micro-step i of step s: a generator seeded from
+  (seed, s, i) and made afresh, so a resumed run draws what the
+  uninterrupted run drew. Its bits are not ``jax.random``'s (the
+  threefry PRNG port, ROADMAP.md §1), so dropout masks equal the
+  JAX package's in distribution only;
+- the frozen tree: no autograd leaves, no optimizer state, not in the
+  checkpoint; a frozen leaf that shares storage with a trained one is
+  copied before the first step (DPO's reference = the starting policy);
 - global-norm clipping, then AdamW on the warmup-cosine schedule
   (``training.optim``, optax's semantics); ``train/grad_norm`` is the
   norm before clipping;
 - periodic log (``<log_dir>/metrics.jsonl``: train/loss, train/lr,
-  train/grad_norm, tokens_per_sec_per_chip, ...), eval and checkpoint,
-  a ``final`` checkpoint at the end, and ``--resume`` from the latest
-  one (params, AdamW state, step and data position).
+  train/grad_norm, tokens_per_sec_per_chip, ...; tokens are the sum of
+  every ``attention_mask`` in the batch), eval and checkpoint, a
+  ``final`` checkpoint at the end, and ``--resume`` from the latest one
+  (params, AdamW state, step and data position).
 
 The autograd leaves are per-layer views of the stacked ``[L, ...]``
 layer tensors, sharing their storage: each layer's gradient is written
@@ -41,8 +56,27 @@ from dla_tpu_torch.training.utils import MetricsLogger, RunningMean, StepTimer
 
 EVAL_BATCHES = 8   # micro-batches per eval (the JAX Trainer's default)
 
-LossFn = Callable[[Dict[str, Any], Dict[str, torch.Tensor]],
+LossFn = Callable[[Dict[str, Any], Optional[Dict[str, Any]], Dict[str, Any],
+                   Optional[torch.Generator]],
                   Tuple[torch.Tensor, Dict[str, torch.Tensor]]]
+
+
+def _tree_map(fn: Callable, tree: Any) -> Any:
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _count_tokens(np_batch: Dict[str, Any]) -> int:
+    """Real tokens of a (possibly nested) host batch: the sum of every
+    ``attention_mask`` in it."""
+    total = 0
+    for k, v in np_batch.items():
+        if isinstance(v, dict):
+            total += _count_tokens(v)
+        elif k == "attention_mask":
+            total += int(v.sum())
+    return total
 
 
 def _train_views(params: Dict[str, Any]) -> Dict[str, Any]:
@@ -71,9 +105,13 @@ def _leaves(tree: Any) -> List[torch.Tensor]:
 
 class Trainer:
     def __init__(self, *, config: Dict[str, Any], loss_fn: LossFn,
-                 params: Dict[str, Any]):
+                 params: Dict[str, Any],
+                 frozen: Optional[Dict[str, Any]] = None,
+                 eval_fn: Optional[LossFn] = None):
         self.config = config
         self.loss_fn = loss_fn
+        self.eval_fn = eval_fn or loss_fn
+        self.seed = int(config.get("seed", 0))
         opt_cfg = dict(config.get("optimization", {}))
         hw_cfg = dict(config.get("hardware", {}))
         opt_cfg.setdefault("gradient_accumulation_steps",
@@ -102,6 +140,13 @@ class Trainer:
             t.requires_grad_(True)
         self.optimizer, self.schedule = build_optimizer(opt_cfg, self.leaves)
         self.step = 0
+        self.frozen = None
+        if frozen is not None:
+            owned = {t.untyped_storage().data_ptr() for t in _leaves(params)}
+            self.frozen = _tree_map(
+                lambda t: (t.detach().clone()
+                           if t.untyped_storage().data_ptr() in owned
+                           else t.detach()), frozen)
 
         log_cfg = config.get("logging", {})
         self.logger = MetricsLogger(log_cfg.get("log_dir"))
@@ -117,17 +162,27 @@ class Trainer:
     def device(self) -> torch.device:
         return self.leaves[0].device
 
-    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, Any]:
-        return {k: torch.from_numpy(np.asarray(v)).to(self.device)
-                for k, v in batch.items()}
+    def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
+        return _tree_map(
+            lambda v: torch.from_numpy(np.asarray(v)).to(self.device), batch)
+
+    def generator(self, step: int, index: int,
+                  for_eval: bool = False) -> torch.Generator:
+        """The random stream of micro-batch ``index`` of ``step`` (of eval
+        batch ``index`` after ``step`` with ``for_eval``), on the
+        device."""
+        entropy = (self.seed % 2 ** 64, step, int(for_eval), index)
+        seed = np.random.SeedSequence(entropy).generate_state(1, np.uint64)[0]
+        return torch.Generator(device=self.device).manual_seed(int(seed))
 
     # ------------------------------------------------------------ the step
 
-    def step_on_batch(self, np_batch: Dict[str, np.ndarray]
+    def step_on_batch(self, np_batch: Dict[str, Any]
                       ) -> Tuple[float, Dict[str, float]]:
-        """One optimizer step on a host batch of ``global_batch`` rows.
-        Returns (loss, metrics incl. grad_norm)."""
-        rows = next(iter(np_batch.values())).shape[0]
+        """One optimizer step on a host batch of ``global_batch`` rows
+        (flat or nested dicts of arrays). Returns (loss, metrics incl.
+        grad_norm)."""
+        rows = _leaves(np_batch)[0].shape[0]
         if rows % self.accum:
             raise ValueError(f"batch of {rows} rows not divisible by accum "
                              f"{self.accum}")
@@ -137,9 +192,10 @@ class Trainer:
         loss_acc = torch.zeros((), device=self.device)
         metric_acc: Dict[str, torch.Tensor] = {}
         for i in range(self.accum):
-            mb = self._to_device({k: v[i * per:(i + 1) * per]
-                                  for k, v in np_batch.items()})
-            loss, metrics = self.loss_fn(self.train_params, mb)
+            mb = self._to_device(_tree_map(
+                lambda v: v[i * per:(i + 1) * per], np_batch))
+            loss, metrics = self.loss_fn(self.train_params, self.frozen, mb,
+                                         self.generator(self.step, i))
             loss.backward()
             loss_acc += loss.detach() / self.accum
             for k, m in metrics.items():
@@ -173,7 +229,7 @@ class Trainer:
         gen = iter(train_iter)
         while self.step < self.max_steps:
             np_batch = next(gen)
-            n_tokens = int(np_batch["attention_mask"].sum())  # real tokens
+            n_tokens = _count_tokens(np_batch)
             loss, metrics = self.step_on_batch(np_batch)
             timer.tick(n_tokens)
             running.update(loss)
@@ -207,8 +263,9 @@ class Trainer:
         for i, np_batch in enumerate(eval_iter_fn()):
             if i >= EVAL_BATCHES:
                 break
-            loss, metrics = self.loss_fn(self.train_params,
-                                         self._to_device(np_batch))
+            loss, metrics = self.eval_fn(
+                self.train_params, self.frozen, self._to_device(np_batch),
+                self.generator(self.step, i, for_eval=True))
             losses.append(float(loss))
             for k, v in metrics.items():
                 sums.setdefault(k, []).append(float(v))

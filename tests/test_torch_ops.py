@@ -194,7 +194,30 @@ def test_load_causal_lm_checkpoint_preset_and_refusals(tmp_path):
                        device="cpu")
 
 
-def test_teacher_generation_cli(tmp_path):
+def test_teacher_generation_cli(tmp_path, monkeypatch):
+    """The teacher CLI writes one record per prompt; with
+    ``--reward_model_path`` (a reward checkpoint the JAX package wrote,
+    warm-started from CKPT) each record's ``reward`` equals the JAX
+    reward model's score of the same generated sequences to 1e-4 (fp32;
+    summation order only)."""
+    import jax
+    from dla_tpu.training.model_io import build_reward_model as j_build_rm
+    from dla_tpu_torch.generation.engine import GenerationEngine
+    jrm = j_build_rm({"base_model_name_or_path": str(CKPT)},
+                     jax.random.key(3))
+    rm_dir = tmp_path / "rm"
+    Checkpointer(str(rm_dir)).save(
+        0, {"params": jrm.params},
+        {"model_config": jrm.config.to_dict(), "tokenizer": "byte"})
+    seqs = []
+    real = GenerationEngine.generate_text
+
+    def spy(self, *a, **kw):
+        texts, out = real(self, *a, **kw)
+        seqs.append((out["sequences"].numpy(), out["sequence_mask"].numpy()))
+        return texts, out
+    monkeypatch.setattr(GenerationEngine, "generate_text", spy)
+
     prompts = tmp_path / "prompts.jsonl"
     prompts.write_text("".join(json.dumps({"prompt": p}) + "\n"
                                for p in ["one", "two", "three"]))
@@ -206,9 +229,17 @@ def test_teacher_generation_cli(tmp_path):
     rows = [json.loads(line) for line in out.read_text().splitlines()]
     assert [r["prompt"] for r in rows] == ["one", "two", "three"]
     assert all(isinstance(r["teacher_response"], str) for r in rows)
-    with pytest.raises(NotImplementedError):
-        generate_teacher_data.main(
-            argv + ["--reward_model_path", str(CKPT)], device="cpu")
+    assert all("reward" not in r for r in rows)
+
+    seqs.clear()
+    generate_teacher_data.main(argv + ["--reward_model_path", str(rm_dir)],
+                               device="cpu")
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    assert [r["prompt"] for r in rows] == ["one", "two", "three"]
+    ref = np.concatenate([np.asarray(jrm.model.apply(
+        jrm.params, jnp.asarray(ids), jnp.asarray(mask)))
+        for ids, mask in seqs])[:len(rows)]
+    _close([r["reward"] for r in rows], ref, tol=1e-4)
 
 
 def test_sliding_window_config_is_supported():

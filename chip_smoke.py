@@ -32,15 +32,18 @@ every fault, and the result lines are printed only when all passed):
              autograd Function's gradients against autograd through the
              plain forward; #1, #2 and #3 again at the preference shape
              (B2 T1024 H32 KH8 D64, right-padded rows, real rows
-             compared);
+             compared) and at the distill shape (B4 T2048 H32 KH32 D80:
+             phi-2's head dim through the 128-wide kernels, MHA),
+             right-padded, with packed segment ids and a window, at a
+             ragged T, and the autograd Function at D80;
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
              flash forward, dQ and dK/dV also at the SFT shape, and with
              packed segment ids (bound from the live pairs of those ids;
              yardstick: SDPA given the block-diagonal causal mask, its
-             backend named), and at the preference shape (causal; SDPA
-             with ``is_causal``);
+             backend named), and at the preference and distill shapes
+             (causal; SDPA with ``is_causal``);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -89,7 +92,28 @@ every fault, and the result lines are printed only when all passed):
              log-probs against the same pairs unpacked (same floor), an
              interrupted and resumed reward run (dropout on) against the
              uninterrupted one, and a loss that falls on one repeated
-             batch. The checkpoints are deleted at the end.
+             batch. The reward and DPO ``final/`` checkpoints stay for the
+             distill phase;
+7. distill — the configs' chain on: ``generate_teacher_data.main`` on the
+             preference phase's DPO checkpoint, scored by its reward
+             checkpoint (64 prompts from the seed, 256 new tokens), then
+             ``train_distill.main`` on config/distill_config.yaml with
+             the phi-2 preset student (random weights, full width and
+             depth, flash on, micro-batch 4, 2048-token right-padded
+             rows as configured), cut to grad accumulation 4 and 4
+             steps: CE mode as configured, then KL mode (use_kl +
+             on_policy, temperature 2, the student from the next seed)
+             against the CE run's final checkpoint as the one teacher. Launch counts must equal the
+             path's, losses, grad norms, reward_mean and kl be finite,
+             the first CE loss near ln V, the first KL >= 0, each final
+             checkpoint load back equal to the trained parameters; a
+             steady-state step of each mode is timed and profiled. At 2
+             layers: each mode's per-leaf gradients on the kernel path
+             against the plain path (bf16 floor), the einsum route's
+             loss against the flash route's, an interrupted and resumed
+             CE run against the uninterrupted one, and a loss that falls
+             on a repeated batch. Each checkpoint is deleted as soon as
+             the next step has read it; the peak disk use is printed.
 
 Last lines: the card's name and power limit (nvidia-smi), a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -135,6 +159,22 @@ PREF_T, RM_B, DPO_B = 1024, 2, 1
 PREF_ACCUM, PREF_STEPS, PREF_EVAL_EVERY = 4, 4, 2   # configs: 32 / 256; 3000 / 2000
 PREF_TRAIN_RECORDS, PREF_EVAL_RECORDS = 64, 16
 
+PREF_WORK = ROOT / "build" / "chip_smoke_pref"
+
+# the distill path (config/distill_config.yaml): the phi-2 preset student
+# (hidden 2560 = 32 heads x 80, MHA, vocab 51200), micro-batch 4 of
+# 2048-token right-padded rows as configured; teacher rollouts from the
+# preference phase's DPO checkpoint
+DISTILL_CONFIG = ROOT / "config" / "distill_config.yaml"
+DISTILL_WORK = ROOT / "build" / "chip_smoke_distill"
+PHI_MODEL = "phi-2"
+DIS_B, DIS_T, DIS_H, DIS_HD, DIS_LAYERS, DIS_VOCAB = 4, 2048, 32, 80, 32, \
+    51200
+DIS_ACCUM, DIS_STEPS = 4, 4          # config: 32 / 4000
+DIS_PROMPTS, DIS_NEW, DIS_GEN_BATCH = 64, 256, 8   # the teacher CLI's batch
+DIS_TEMPERATURE = 2.0
+DIS_LENS = [2048, 1210, 640, 333]    # parity's right-padded row lengths
+
 # the rollout path's shapes (llama3-8b, config/rlhf_config.yaml)
 B, PROMPT, NEW = 64, 128, 256
 HID, FFN, HEADS, KV_HEADS, HD, VOCAB, LAYERS = (
@@ -176,6 +216,52 @@ class Run:
         print(f"   {'ok  ' if ok else 'FAIL'} {what}", flush=True)
         if not ok:
             raise AssertionError(what)
+
+
+class _DiskPeak:
+    """The largest total size, sampled when asked, of the checkpoint
+    directories the phases keep under build/. The chip's machine counts
+    the high-water mark of what its disk holds, so a checkpoint is
+    deleted as soon as the next step has read it (``_delete_once_read``)
+    and never lives beside the next save."""
+
+    DIRS = (SFT_WORK, PREF_WORK, DISTILL_WORK)
+
+    def __init__(self):
+        self.peak_gb = 0.0
+
+    def sample(self, where: str) -> float:
+        gb = sum(f.stat().st_size for d in self.DIRS if d.is_dir()
+                 for f in d.rglob("*") if f.is_file()) / 1e9
+        self.peak_gb = max(self.peak_gb, gb)
+        print(f"   disk: {gb:.1f} GB under build/ ({where})", flush=True)
+        return gb
+
+
+DISK = _DiskPeak()
+
+
+@contextlib.contextmanager
+def _delete_once_read(module, name: str, path: Path, reads: int):
+    """Within the block, the loader ``module.<name>`` that a CLI calls
+    deletes the checkpoint directory ``path`` once it has returned
+    ``reads`` times: the CLI has read it and will not again."""
+    import shutil
+    real = getattr(module, name)
+    calls = [0]
+
+    def loader(*args, **kwargs):
+        out = real(*args, **kwargs)
+        calls[0] += 1
+        if calls[0] == reads:
+            shutil.rmtree(path, ignore_errors=True)
+            DISK.sample(f"{path.relative_to(ROOT)} read and deleted")
+        return out
+    setattr(module, name, loader)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
 
 
 def main() -> int:
@@ -231,6 +317,9 @@ def main() -> int:
 
     with run.phase("preference"):
         preference_run(run, torch, dev, _native)
+
+    with run.phase("distill"):
+        distill_run(run, torch, dev, _native)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -516,6 +605,7 @@ def parity(run, torch, dev):
     errs["int8_matmul"] = worst
     parity_backward(run, torch, dev, g, errs)
     parity_preference(run, torch, dev, g)
+    parity_distill(run, torch, dev, g)
     run.report["parity_max_err"] = errs
 
 
@@ -657,6 +747,81 @@ def parity_preference(run, torch, dev, g):
                   f"autograd of the plain forward: max|err| {e:.3g} <= "
                   f"{tol:.3g}")
     run.report["parity_preference"] = dict(lengths=lens, max_abs_err=errs)
+
+
+def parity_distill(run, torch, dev, g):
+    """#1, #2 and #3 at phi-2's head dim 80 (the 128-wide kernels through
+    80-column tensor maps) with GQA group 1: at the distill shape (B4
+    T2048 H32 KH32 D80, causal) on right-padded rows (forward and dQ
+    compared on the real rows, pad rows' dO 0 as on the path), with
+    packed segment ids and a window, at a ragged T; then the autograd
+    Function against autograd through the plain forward. Tolerances as
+    in ``parity_backward``: forward 3e-2 (lse 1e-3), kernels 1e-2 *
+    max|ref|, autograd Function 2e-2 * max|ref|."""
+    from dla_tpu_torch.ops import flash_attention as fa
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    b, t, h, d = DIS_B, DIS_T, DIS_H, DIS_HD
+    errs = {}
+    cases = [(f"distill shape B{b} T{t} H{h} KH{h} D{d}, causal, "
+              f"right-padded rows of {DIS_LENS}", (b, t, h, d), "pad"),
+             ("D80 packed segment ids, window 300", (b, t, h, d),
+              "seg+win"),
+             ("D80 ragged T1000, MHA", (2, 1000, 8, d), None)]
+    for label, (b_, t_, h_, d_), extra in cases:
+        q, k, v, do = (mk(b_, t_, h_, d_) for _ in range(4))
+        kw, real = {}, torch.ones((b_, t_), dtype=torch.bool, device=dev)
+        if extra == "pad":
+            real = (torch.arange(t_, device=dev)[None, :]
+                    < torch.tensor(DIS_LENS, device=dev)[:, None])
+            do = do * real[:, :, None, None].to(do.dtype)
+        if extra == "seg+win":
+            kw = dict(segment_ids=_segments(torch, dev, b_, t_, SEED),
+                      window=300)
+        out, lse = fa.flash_attention_forward(q, k, v, **kw)
+        ref, ref_lse = fa.flash_forward_plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float())[real].abs().max().item()
+        live = (ref_lse > -1e29).transpose(1, 2) & real[:, :, None]
+        e_lse = (lse - ref_lse).transpose(1, 2)[live].abs().max().item()
+        run.check(e <= 3e-2 and e_lse <= 1e-3 and torch.isfinite(
+            out.float()[real]).all().item(),
+            f"flash {label}: max|out err| {e:.3g} <= 3e-2, max|lse err| "
+            f"{e_lse:.3g} <= 1e-3")
+        got = fa.flash_attention_backward(q, k, v, out, lse, do, **kw)
+        refb = fa.flash_backward_plain(q, k, v, out, lse, do, **kw)
+        torch.cuda.synchronize()
+        es = [e]
+        for name, a, r in zip(("dq", "dk", "dv"), got, refb):
+            a, r = a.float(), r.float()
+            if name == "dq":
+                a, r = a[real], r[real]
+            err = (a - r).abs().max().item()
+            tol = 1e-2 * r.abs().max().item()
+            run.check(err <= tol and torch.isfinite(a).all().item(),
+                      f"flash bwd {label} {name}: max|err| {err:.3g} <= "
+                      f"{tol:.3g}")
+            es.append(err)
+        if extra == "pad":
+            errs = dict(zip(("fwd", "dq", "dk", "dv"), es))
+        del q, k, v, do, out, lse, ref, ref_lse, got, refb
+        torch.cuda.empty_cache()
+    b_, t_, h_ = 2, 256, 8
+    base = [mk(b_, t_, h_, d) for _ in range(3)]
+    do = mk(b_, t_, h_, d)
+    seg = _segments(torch, dev, b_, t_, SEED + 2)
+    leaves = [x.clone().requires_grad_() for x in base]
+    got = torch.autograd.grad(fa.flash_causal_attention(
+        *leaves, segment_ids=seg), leaves, do)
+    leaves = [x.clone().requires_grad_() for x in base]
+    ref = torch.autograd.grad(fa.flash_forward_plain(
+        *leaves, segment_ids=seg)[0], leaves, do)
+    for name, a, r in zip(("dq", "dk", "dv"), got, ref):
+        e = (a.float() - r.float()).abs().max().item()
+        tol = 2e-2 * r.float().abs().max().item()
+        run.check(e <= tol, f"flash autograd Function D80 {name} vs "
+                  f"autograd of the plain forward: max|err| {e:.3g} <= "
+                  f"{tol:.3g}")
+    run.report["parity_distill"] = dict(lengths=DIS_LENS, max_abs_err=errs)
 
 
 # ------------------------------------------------------------------ timing
@@ -847,6 +1012,7 @@ def timing(run, torch, dev):
           f"torch.matmul {seq_lib:.4f} ms", flush=True)
     timing_sft(run, torch, dev, g)
     timing_preference(run, torch, dev, g)
+    timing_distill(run, torch, dev, g)
 
 
 def _int8_step_sequence(torch, dev, g, qm):
@@ -1127,6 +1293,82 @@ def timing_preference(run, torch, dev, g):
         run.kernels[name]["preference_shape"] = rows[key]
         r = rows[key]
         print(f"   preference flash {key}: {r['ms']:.4f} ms vs bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA "
+              f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}",
+              flush=True)
+    del sets, lib
+    torch.cuda.empty_cache()
+
+
+def timing_distill(run, torch, dev, g):
+    """Flash forward, dQ and dK/dV at the distill shape (B=4, T=2048,
+    H=KH=32, D=80, causal: right-padded rows need no mask, so every
+    causal tile is computed), their plain versions and SDPA with
+    ``is_causal`` (forward; autograd backward for dQ, dK and dV
+    together). Bounds as in ``timing_sft``, over the causal work at
+    D = 80 (the kernels run 128-wide tiles: 1.6 times those products)."""
+    import torch.nn.functional as F
+    from dla_tpu_torch.ops import flash_attention as fa
+    b, t, h, d = DIS_B, DIS_T, DIS_H, DIS_HD
+    mk = lambda *s: torch.randn(s, generator=g, device=dev).to(torch.bfloat16)
+    qb, rowb = b * t * h * d * 2, b * h * t * 4
+    sets = []
+    for _ in range(2):          # ~170 MB each: a pass streams past the L2
+        q, k, v, do = (mk(b, t, h, d) for _ in range(4))
+        out, lse = fa.flash_attention_forward(q, k, v)
+        sets.append(dict(q=q, k=k, v=v, do=do, out=out, lse=lse,
+                         delta=fa.delta_rowsum(out, do)))
+    mm = 2 * b * h * d * t * (t + 1) // 2          # one causal product
+    t_fwd = _time_ms(torch, [lambda s=s: fa.flash_attention_forward(
+        s["q"], s["k"], s["v"]) for s in sets * 4])
+    t_dq = _time_ms(torch, [lambda s=s: fa.launch_bwd_dq(
+        s["q"], s["k"], s["v"], s["out"], s["do"], s["lse"], None, None,
+        None, None) for s in sets * 4])
+    t_dkv = _time_ms(torch, [lambda s=s: fa.launch_bwd_dkv(
+        s["q"], s["k"], s["v"], s["do"], s["lse"], s["delta"], None, None,
+        None, None) for s in sets * 4])
+    t_pf = _time_ms(torch, [lambda s=s: fa.flash_forward_plain(
+        s["q"], s["k"], s["v"]) for s in sets], reps=3)
+    t_pb = _time_ms(torch, [lambda s=s: fa.flash_backward_plain(
+        s["q"], s["k"], s["v"], s["out"], s["lse"], s["do"])
+        for s in sets], reps=3)
+    lib = []
+    for s in sets:
+        qs, ks, vs = (x.transpose(1, 2).contiguous().requires_grad_()
+                      for x in (s["q"], s["k"], s["v"]))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        lib.append((qs, ks, vs, o, s["do"].transpose(1, 2).contiguous()))
+    with torch.no_grad():
+        t_lf = _time_ms(torch, [lambda s=s: F.scaled_dot_product_attention(
+            s[0], s[1], s[2], is_causal=True) for s in lib * 4])
+    t_lb = _time_ms(torch, [lambda s=s: torch.autograd.grad(
+        s[3], s[:3], s[4], retain_graph=True) for s in lib * 4])
+    backend_f = _top_kernel(torch, lambda: F.scaled_dot_product_attention(
+        lib[0][0].detach(), lib[0][1].detach(), lib[0][2].detach(),
+        is_causal=True))
+    print(f"   SDPA at D80 ran {backend_f} (forward)", flush=True)
+    unit = "one launch: one layer of a distill micro-step, B4 T2048 H32 " \
+           "KH32 D80, causal, right-padded rows"
+    rows = {
+        "fwd": dict(ms=t_fwd, plain_ms=t_pf, library_ms=t_lf, unit=unit,
+                    library=f"SDPA is_causal: {backend_f}",
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        4 * qb + rowb, 2 * mm)))),
+        "dq": dict(ms=t_dq, plain_ms=t_pb, library_ms=t_lb,
+                   unit=unit + " (plain and library: dQ, dK and dV)",
+                   **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                       6 * qb + 2 * rowb, 3 * mm)))),
+        "dkv": dict(ms=t_dkv, plain_ms=t_pb, library_ms=t_lb,
+                    unit=unit + " (plain and library: dQ, dK and dV)",
+                    **dict(zip(("bound_ms", "bound_by"), bound_ms(
+                        6 * qb + 2 * rowb, 4 * mm))))}
+    run.report["timing_distill"] = rows
+    for key, name in (("fwd", "flash_attention_fwd"),
+                      ("dq", "flash_attention_bwd_dq"),
+                      ("dkv", "flash_attention_bwd_dkv")):
+        run.kernels[name]["distill_shape"] = rows[key]
+        r = rows[key]
+        print(f"   distill flash {key}: {r['ms']:.4f} ms vs bound "
               f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA "
               f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}",
               flush=True)
@@ -1476,6 +1718,18 @@ def profile_decode(run, torch, model, params, ids, mask, gen, step_ms,
     print("   decode profile " + json.dumps(rep), flush=True)
 
 
+def _device_ms_by_kind(per_name):
+    """Device ms by kind of kernel: the port's, cuBLAS's, PyTorch's."""
+    kinds = {}
+    for k, v in per_name.items():
+        kind = ("port attention kernels" if any(o in k for o in OUR_KERNELS)
+                else "matmul (cuBLAS)" if any(m in k for m in (
+                    "nvjet", "gemm", "xmma", "cutlass", "sm90_"))
+                else "elementwise / reduce / copy (PyTorch)")
+        kinds[kind] = kinds.get(kind, 0.0) + v
+    return kinds
+
+
 def _profile_rep(per_name, dev_ms, step_ms):
     ours = {o: sum(v for k, v in per_name.items() if o in k)
             for o in OUR_KERNELS}
@@ -1638,6 +1892,7 @@ def train_run(run, torch, dev, native):
               == [SFT_LAYERS, 2048, 2048] and index["aux"]["step"]
               == SFT_STEPS, "final/ holds stacked params at step 4")
     save_s = trainer.last_save_s   # final/ stays for the preference phase
+    DISK.sample("SFT final saved")
 
     # steady state: one optimizer step and one micro-step, synchronized
     batch = _sft_batches(work, 1)[0]
@@ -1680,13 +1935,7 @@ def train_run(run, torch, dev, native):
     top = sorted(per_name.items(), key=lambda kv: -kv[1])[:10]
     by_op = sorted(_device_ms(prof, 1, ops=True)[0].items(),
                    key=lambda kv: -kv[1])[:15]
-    kinds = {}     # device ms per optimizer step by kind of kernel
-    for k, v in per_name.items():
-        kind = ("port attention kernels" if any(o in k for o in OUR_KERNELS)
-                else "matmul (cuBLAS)" if any(m in k for m in (
-                    "nvjet", "gemm", "xmma", "cutlass", "sm90_"))
-                else "elementwise / reduce / copy (PyTorch)")
-        kinds[kind] = kinds.get(kind, 0.0) + v
+    kinds = _device_ms_by_kind(per_name)
     tok_s = tokens / step_s
     rep = dict(
         cli_s=t_cli, losses=losses, grad_norms=gnorms, eval_losses=evals,
@@ -1961,7 +2210,7 @@ def preference_run(run, torch, dev, native):
     import gc
     import shutil
     from dla_tpu_torch.data.jsonl import write_jsonl
-    work = ROOT / "build" / "chip_smoke_pref"
+    work = PREF_WORK
     try:
         gc.collect()
         torch.cuda.empty_cache()
@@ -1982,16 +2231,18 @@ def preference_run(run, torch, dev, native):
                                          work)),
             ("2-layer checks", lambda: pref_checks_2_layers(
                 run, torch, dev, work))])
-    finally:
-        shutil.rmtree(work, ignore_errors=True)
+    finally:     # the reward and DPO finals stay for the distill phase
         shutil.rmtree(SFT_WORK, ignore_errors=True)
+        for d in (work.iterdir() if work.is_dir() else ()):
+            if d.name not in ("reward", "dpo"):
+                shutil.rmtree(d) if d.is_dir() else d.unlink()
 
 
 def _params_equal(torch, a, b) -> bool:
     if isinstance(a, dict):
         return set(a) == set(b) and all(_params_equal(torch, a[k], b[k])
                                         for k in a)
-    return a.dtype == b.dtype and torch.equal(a, b)
+    return a.dtype == b.dtype and torch.equal(a, b.to(a.device))
 
 
 def pref_cli(run, torch, dev, native, phase: str, work: Path):
@@ -2011,7 +2262,11 @@ def pref_cli(run, torch, dev, native, phase: str, work: Path):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     main_fn = train_reward.main if phase == "reward" else train_dpo.main
-    trainer = main_fn(_pref_argv(phase, work), device="cuda")
+    # DPO reads the SFT checkpoint twice (policy and reference), the last
+    # step that reads it
+    with (_delete_once_read(train_dpo, "load_causal_lm", SFT_WORK / "ckpt",
+                            2) if phase == "dpo" else contextlib.nullcontext()):
+        trainer = main_fn(_pref_argv(phase, work), device="cuda")
     torch.cuda.synchronize()
     t_cli = time.perf_counter() - t0
     counts = native.launch_counts()
@@ -2061,13 +2316,13 @@ def pref_cli(run, torch, dev, native, phase: str, work: Path):
                                    **cfg}, device=dev).params
     else:
         back = load_causal_lm(str(final), cfg, device=dev).params
+    DISK.sample(f"{phase} final saved")
     run.check(_params_equal(torch, back, trainer.params),
               f"{phase}: final/ loads back (through "
               f"{'build_reward_model' if phase == 'reward' else 'load_causal_lm'}"
               f") equal to the trained parameters")
     del back
     save_s = trainer.last_save_s
-    shutil.rmtree(work / phase / "ckpt")
 
     t_parts["load_back"] = time.perf_counter() - t0
 
@@ -2102,13 +2357,7 @@ def pref_cli(run, torch, dev, native, phase: str, work: Path):
         prof_s = time.perf_counter() - t0
     events = prof.key_averages()        # built once: ~1e5 events a step
     per_name, dev_ms = _device_ms(events, 1)
-    kinds = {}
-    for k, v in per_name.items():
-        kind = ("port attention kernels" if any(o in k for o in OUR_KERNELS)
-                else "matmul (cuBLAS)" if any(m in k for m in (
-                    "nvjet", "gemm", "xmma", "cutlass", "sm90_"))
-                else "elementwise / reduce / copy (PyTorch)")
-        kinds[kind] = kinds.get(kind, 0.0) + v
+    kinds = _device_ms_by_kind(per_name)
     by_op = sorted(_device_ms(events, 1, ops=True)[0].items(),
                    key=lambda kv: -kv[1])[:12]
     host = _host_profile(events)
@@ -2404,6 +2653,452 @@ def _pref_overfit(run, torch, dev, work, phase, rep):
         run.check(ld[-1] < ld[0] - 0.01, f"DPO loss falls on a "
                   f"repeated batch ({ld[0]:.4f} -> {ld[-1]:.4f}, by "
                   f"more than 0.01)")
+
+
+# ----------------------------------------------------------------- distill
+
+def _distill_prompts(n: int, seed: int):
+    """Prompts of 32..250 bytes (= byte-tokenizer tokens, inside the
+    teacher CLI's 256-token prompt limit)."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [{"prompt": "".join(rs.choice(_LETTERS, int(rs.randint(32, 251))))}
+            for _ in range(n)]
+
+
+def _distill_argv(mode: str, work: Path):
+    """config/distill_config.yaml with the phi-2 preset student, flash
+    on, the byte tokenizer, the phase's rollouts and this run's cuts
+    (micro-batch 4 and 2048-token rows as configured); KL mode adds
+    use_kl + on_policy, temperature 2 and the CE run's final checkpoint
+    as the one teacher, with the student drawn from the next seed (the
+    CE run's student barely moved inside the warmup: from the same
+    draw the KL would start at ~0)."""
+    sets = {"seed": SEED,
+            "model.student_model_name_or_path": PHI_MODEL,
+            "model.use_flash_attention": "true",
+            "model.tokenizer": "byte",
+            "data.teacher_samples_path": str(work / "teacher_rollouts.jsonl"),
+            "hardware.gradient_accumulation_steps": DIS_ACCUM,  # config: 32
+            "optimization.max_train_steps": DIS_STEPS,          # config: 4000
+            "logging.log_every_steps": 1,
+            "logging.output_dir": str(work / mode / "ckpt"),
+            "logging.log_dir": str(work / mode / "logs")}
+    if mode == "kl":   # a student from another seed than its teacher's
+        sets.update({"seed": SEED + 1,
+                     "distill.use_kl": "true", "distill.on_policy": "true",
+                     "optimization.temperature": DIS_TEMPERATURE,
+                     "distill.teacher_model_name_or_path":
+                         str(work / "ce" / "ckpt" / "final")})
+    argv = ["--config", str(DISTILL_CONFIG)]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    return argv
+
+
+def _distill_batches(work: Path, n: int):
+    """The first ``n`` global batches the CE CLI's iterator yields."""
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.training.config import (config_from_args,
+                                               make_arg_parser)
+    from dla_tpu_torch.training.train_distill import build_train_iterator
+    config = config_from_args(make_arg_parser("").parse_args(
+        _distill_argv("ce", work)))
+    it = iter(build_train_iterator(config, ByteTokenizer(), DIS_T,
+                                   DIS_B * DIS_ACCUM))
+    return [next(it) for _ in range(n)]
+
+
+def _distill_launches(mode: str, micro_steps: int):
+    """Wrapper launches of #1, #2, #3 per run of ``micro_steps``: the
+    student's forward runs every layer twice (full remat) and its
+    backward once; KL adds the teacher's forward (no grad: once)."""
+    L = DIS_LAYERS
+    return {"flash_attention_fwd": micro_steps * (3 if mode == "kl" else 2)
+            * L,
+            "flash_attention_bwd_dq": micro_steps * L,
+            "flash_attention_bwd_dkv": micro_steps * L}
+
+
+def distill_run(run, torch, dev, native):
+    import gc
+    import shutil
+    from dla_tpu_torch.data.jsonl import write_jsonl
+    work = DISTILL_WORK
+    rep = {}
+    run.report["distill"] = rep
+    disk = DISK
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        finals = {p: PREF_WORK / p / "ckpt" / "final"
+                  for p in ("reward", "dpo")}
+        run.check(all((f / "index.json").is_file() for f in finals.values()),
+                  "the preference phase's reward and DPO checkpoints are "
+                  "there to start from")
+        free = shutil.disk_usage(ROOT).free / 1e9
+        print(f"   {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
+              f"allocated at the start; {free:.1f} GB free on disk",
+              flush=True)
+        rep["disk_free_gb_at_start"] = free
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        write_jsonl(work / "prompts.jsonl",
+                    _distill_prompts(DIS_PROMPTS, SEED))
+        disk.sample("start")
+        _run_parts(run, [
+            ("teacher rollouts", lambda: distill_rollouts(
+                run, torch, dev, native, work, finals, rep, disk)),
+            ("CE CLI", lambda: distill_cli(run, torch, dev, native, "ce",
+                                           work, rep, disk)),
+            ("KL CLI", lambda: distill_cli(run, torch, dev, native, "kl",
+                                           work, rep, disk)),
+            ("2-layer checks", lambda: distill_checks_2_layers(
+                run, torch, dev, work, rep))])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(PREF_WORK, ignore_errors=True)
+        rep["peak_disk_gb"] = disk.peak_gb
+        print(f"   peak disk use under build/: {disk.peak_gb:.1f} GB",
+              flush=True)
+
+
+def distill_rollouts(run, torch, dev, native, work, finals, rep, disk):
+    """The teacher CLI on the DPO checkpoint with the reward checkpoint
+    scoring each sequence; each batch runs the policy's prefill and the
+    reward model's forward through #1 (the decode steps of a bf16 cache
+    take the einsum path under ``decode_kernel: auto``)."""
+    import shutil
+    import numpy as np
+    from dla_tpu_torch.training import generate_teacher_data
+    out = work / "teacher_rollouts.jsonl"
+    argv = ["--model_name_or_path", str(finals["dpo"]),
+            "--reward_model_path", str(finals["reward"]),
+            "--prompts_path", str(work / "prompts.jsonl"),
+            "--output_path", str(out), "--max_new_tokens", str(DIS_NEW),
+            "--seed", str(SEED)]
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    generate_teacher_data.main(argv, device="cuda")
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    counts = native.launch_counts()
+    batches = -(-DIS_PROMPTS // DIS_GEN_BATCH)
+    want = {"flash_attention_fwd": 2 * SFT_LAYERS * batches}
+    print(f"   teacher CLI: {t_gen:.1f} s, launches {counts}, expected "
+          f"{want} (per batch of {DIS_GEN_BATCH}: the prefill and the "
+          f"reward forward, {SFT_LAYERS} layers each)", flush=True)
+    run.check(counts == want, "teacher generation launch counts equal the "
+              "path's")
+    rows = [json.loads(line) for line in out.read_text().splitlines()]
+    ok = len(rows) == DIS_PROMPTS and all(
+        isinstance(r.get("prompt"), str) and isinstance(
+            r.get("teacher_response"), str)
+        and isinstance(r.get("reward"), float) and np.isfinite(r["reward"])
+        for r in rows)
+    run.check(ok, f"{len(rows)} rollouts, each with a prompt, a response "
+              "and a finite reward")
+    resp = [len(r["teacher_response"].encode()) for r in rows]
+    prompt = [len(r["prompt"].encode()) for r in rows]
+    rewards = [r["reward"] for r in rows]
+    rep["rollouts"] = dict(
+        seconds=t_gen, launches=counts, n=len(rows),
+        prompt_bytes_mean=float(np.mean(prompt)),
+        response_bytes_mean=float(np.mean(resp)),
+        response_bytes_max=int(max(resp)),
+        reward_mean=float(np.mean(rewards)),
+        reward_std=float(np.std(rewards)))
+    print(f"   rollouts: {json.dumps(rep['rollouts'])}", flush=True)
+    shutil.rmtree(PREF_WORK, ignore_errors=True)     # read: not needed now
+    disk.sample("rollouts written, preference checkpoints deleted")
+
+
+def _load_back_equal(torch, final: Path, trainer) -> bool:
+    """``final/`` through ``load_causal_lm`` (on the host) equals the
+    trainer's parameters, leaf by leaf."""
+    from dla_tpu_torch.training.model_io import load_causal_lm
+    back = load_causal_lm(str(final), {"tokenizer": "byte"},
+                          device="cpu").params
+    return _params_equal(torch, back, trainer.params)
+
+
+def distill_cli(run, torch, dev, native, mode: str, work: Path, rep, disk):
+    """One distill CLI at full width and depth, its gates, its final
+    checkpoint read back, then steady-state steps on the CLI's first
+    batch, timed and profiled."""
+    import gc
+    import shutil
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+    from dla_tpu_torch.training import train_distill
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # KL reads the CE run's final as its teacher, the last step that does
+    with (_delete_once_read(train_distill, "load_teacher",
+                            work / "ce" / "ckpt", 1)
+          if mode == "kl" else contextlib.nullcontext()):
+        trainer = train_distill.main(_distill_argv(mode, work),
+                                     device="cuda")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = native.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = _distill_launches(mode, DIS_ACCUM * DIS_STEPS)
+    print(f"   {mode}: CLI {t_cli:.1f} s, peak {peak:.2f} GiB, launches "
+          f"{counts}, expected {want} (per micro-step and layer: student "
+          f"forward x2 under full remat, backward x1"
+          f"{', teacher forward x1' if mode == 'kl' else ''})", flush=True)
+    run.check(counts == want, f"distill {mode} launch counts equal the "
+              "path's")
+    rows = [json.loads(line) for line in
+            (work / mode / "logs" / "metrics.jsonl").read_text().splitlines()]
+    rows = [r for r in rows if "train/loss_instant" in r]
+    key = "train/ce" if mode == "ce" else "train/kl"
+    series = {k: [r.get(k) for r in rows] for k in
+              ("train/loss_instant", "train/grad_norm", "train/reward_mean",
+               key)}
+    print(f"   {mode}: {json.dumps(series)}", flush=True)
+    run.check(len(rows) == DIS_STEPS and all(
+        x is not None and np.isfinite(x) for v in series.values()
+        for x in v), f"distill {mode}: losses, grad norms, reward_mean and "
+        f"{key} finite")
+    first = series[key][0]
+    if mode == "ce":
+        # random logits of std 0.02 * sqrt(2560) = 1.01 add ~0.5 to ln V
+        ln_v = math.log(DIS_VOCAB)
+        run.check(ln_v - 0.5 <= first <= ln_v + 1.0, f"first CE loss "
+                  f"{first:.4f} near ln V = {ln_v:.4f} (in [ln V - 0.5, "
+                  f"ln V + 1])")
+    else:
+        run.check(first >= 0.0, f"KL at step 1 {first:.6f} >= 0")
+    final = work / mode / "ckpt" / "final"
+    ckpt_gb = sum(f.stat().st_size for f in final.iterdir()) / 1e9
+    disk.sample(f"{mode} final saved")
+    t1 = time.perf_counter()
+    run.check(_load_back_equal(torch, final, trainer),
+              f"distill {mode}: final/ loads back (load_causal_lm) equal "
+              "to the trained parameters")
+    t_load = time.perf_counter() - t1
+    if mode == "kl":       # read back: nothing reads it again
+        shutil.rmtree(work / "kl" / "ckpt", ignore_errors=True)
+        disk.sample("KL checkpoint deleted")
+
+    t_steps = time.perf_counter()
+    batch = _distill_batches(work, 1)[0]
+    real = int(batch["attention_mask"].sum())
+    positions = int(batch["attention_mask"].size)
+    trainer.step_on_batch(batch)                 # warm
+    torch.cuda.synchronize()
+    steps_s = []
+    for _ in range(2):
+        native.reset_launch_counts()
+        t0 = time.perf_counter()
+        trainer.step_on_batch(batch)
+        torch.cuda.synchronize()
+        steps_s.append(time.perf_counter() - t0)
+    step_s = statistics.median(steps_s)
+    per_step = native.launch_counts()
+    run.check(per_step == _distill_launches(mode, DIS_ACCUM),
+              f"distill {mode}: one optimizer step launches "
+              f"{_distill_launches(mode, DIS_ACCUM)} ({per_step})")
+    t_steps = time.perf_counter() - t_steps
+    t_prof = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.step_on_batch(batch)
+        torch.cuda.synchronize()
+        prof_s = time.perf_counter() - t0
+    events = prof.key_averages()
+    per_name, dev_ms = _device_ms(events, 1)
+    kinds = _device_ms_by_kind(per_name)
+    by_op = sorted(_device_ms(events, 1, ops=True)[0].items(),
+                   key=lambda kv: -kv[1])[:12]
+    host = _host_profile(events)
+    t_prof = time.perf_counter() - t_prof
+    n_params = sum(t.numel() for t in trainer.leaves)
+    # parameters a position multiplies: all but the embedding table (the
+    # lm_head is untied); the teacher is a phi-2 of the same size
+    n_mm = n_params - trainer.params["embed"]["embedding"].numel()
+    flops = (6 + (2 if mode == "kl" else 0)) * n_mm * positions
+    out = dict(
+        cli_s=t_cli, load_back_s=t_load, steps_s=t_steps, profile_s=t_prof,
+        launches=counts,
+        launches_per_step=per_step, series=series, n_params=n_params,
+        n_params_per_position=n_mm, rows_per_step=DIS_B * DIS_ACCUM,
+        positions_per_step=positions, real_tokens_per_step=real,
+        pad_share=(positions - real) / positions,
+        optimizer_step_ms=step_s * 1e3,
+        optimizer_steps_ms=[x * 1e3 for x in steps_s],
+        real_tokens_per_s=real / step_s,
+        model_flops_formula="6 N per position" + (
+            " + 2 N per teacher position" if mode == "kl" else "")
+        + " (N = parameters a position multiplies), attention excluded",
+        model_flops_share=flops / step_s / BF16_FLOP_PER_S,
+        peak_mem_gib=peak, checkpoint_save_s=trainer.last_save_s,
+        checkpoint_gb=ckpt_gb, profiled_step_ms=prof_s * 1e3,
+        device_ms_per_step=dev_ms if dev_ms > 0 else "not measured",
+        busy_share=dev_ms / (prof_s * 1e3) if dev_ms > 0 else
+        "not measured",
+        device_ms_by_kind=kinds, device_ms_by_op=by_op, **host,
+        top=[(k[:60], v) for k, v in sorted(
+            per_name.items(), key=lambda kv: -kv[1])[:8]])
+    rep[mode] = out
+    print(f"   distill {mode} " + json.dumps(out), flush=True)
+    for name in ("flash_attention_fwd", "flash_attention_bwd_dq",
+                 "flash_attention_bwd_dkv"):
+        entry = run.kernels.setdefault(name, {})
+        entry[f"launches_distill_{mode}"] = counts.get(name, 0)
+        entry.setdefault("distill_shape", {})[
+            f"launches_per_{mode}_step"] = per_step.get(name, 0)
+    del trainer, batch, prof, events
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _phi_small(torch, dev, mode: str, layers: int, opt: dict, out_dir,
+               seed=SEED, attention="flash"):
+    """(Trainer, model) at ``layers`` of phi-2 (full width, remat full)
+    with the distill loss of ``mode``: KL against a phi of the same
+    shape drawn from ``seed + 100``."""
+    import dataclasses
+    from dla_tpu_torch.models.config import get_model_config
+    from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.training import train_distill
+    from dla_tpu_torch.training.trainer import Trainer
+    cfg = dataclasses.replace(get_model_config(
+        PHI_MODEL, max_seq_length=DIS_T, attention=attention, remat="full"),
+        num_layers=layers)
+    model = Transformer(cfg)
+    params = model.init(_gen(torch, dev, seed))
+    kl = mode == "kl"
+    frozen = ({"teacher_0": model.init(_gen(torch, dev, seed + 100))}
+              if kl else None)
+    config = {"seed": SEED, "optimization": opt,
+              "logging": {"output_dir": str(out_dir), "log_dir": None}}
+    loss = train_distill.make_distill_loss(
+        model, [model] if kl else [], kl, DIS_TEMPERATURE if kl else 1.0)
+    return Trainer(config=config, params=params, frozen=frozen,
+                   loss_fn=loss), model
+
+
+def _distill_opt(**over):
+    """config/distill_config.yaml's optimization block at this run's
+    cuts."""
+    return _config_opt(DISTILL_CONFIG, **{
+        "gradient_accumulation_steps": DIS_ACCUM,
+        "max_train_steps": DIS_STEPS, **over})
+
+
+def distill_checks_2_layers(run, torch, dev, work, rep):
+    """At 2 layers of phi-2 on the CLI's batches: each mode's per-leaf
+    gradients on the kernel path against the path through the kernels'
+    plain versions (``PREF_GRAD_FACTOR`` x the bf16 floor, as the
+    preference check), the einsum route's loss against the flash
+    route's, an interrupted and resumed CE run against the uninterrupted
+    one, and a CE loss that falls on one repeated micro-batch."""
+    checks = {}
+    rep["checks_2_layers"] = checks
+    batches = _distill_batches(work, DIS_STEPS)
+    _run_parts(run, [(f"{mode} gradients, 2 layers",
+                      lambda mode=mode: _distill_grads(
+                          run, torch, dev, work, mode, batches[0], checks))
+                     for mode in ("ce", "kl")]
+               + [("CE resume, 2 layers", lambda: _distill_resume(
+                   run, torch, dev, work, batches, checks)),
+                  ("CE repeated batch, 2 layers", lambda: _distill_overfit(
+                      run, torch, dev, work, batches[0], checks))])
+
+
+def _distill_grads(run, torch, dev, work, mode, batch, checks):
+    import dataclasses
+    import gc
+    from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.training import train_distill
+    trainer, model = _phi_small(torch, dev, mode, 2, _distill_opt(),
+                                work / f"g_{mode}")
+    params, frozen = trainer.params, trainer.frozen
+    mb = trainer._to_device({k: v[:DIS_B] for k, v in batch.items()})
+    kl = mode == "kl"
+    temp = DIS_TEMPERATURE if kl else 1.0
+
+    def loss_of(m):
+        fn = train_distill.make_distill_loss(m, [m] if kl else [], kl, temp)
+        return lambda v: fn(v, frozen, mb, None)[0]
+    model32 = Transformer(dataclasses.replace(model.cfg, dtype="float32"))
+    lk, gk = _grads(torch, loss_of(model), params)
+    with plain_kernels():
+        lp, gp = _grads(torch, loss_of(model), params)
+        l32, g32 = _grads(torch, loss_of(model32), params)
+    print(f"   distill {mode} 2-layer loss kernels {lk:.6f}, plain "
+          f"{lp:.6f}, plain fp32 {l32:.6f}", flush=True)
+    # the k bias moves every score of a query alike outside the rotary
+    # dims, so its exact gradient there is 0 and what the leaf carries is
+    # mostly the rounding of bf16 dS: the preference gate's sqrt(2)
+    worst = _grad_floor_check(run, torch, f"distill {mode} loss, 2 layers",
+                              gk, gp, g32, PREF_GRAD_FACTOR)
+    out = dict(loss_kernels=lk, loss_plain=lp, loss_plain_fp32=l32,
+               rel_err_vs_floor=worst)
+    if mode == "ce":       # the einsum route on the same rows
+        xla = Transformer(dataclasses.replace(model.cfg, attention="xla"))
+        with torch.no_grad():
+            lx = float(loss_of(xla)(params))
+        e = abs(lx - lk) / abs(l32)
+        out["loss_einsum"] = lx
+        run.check(e <= 5e-3, f"distill ce 2 layers: einsum-route loss "
+                  f"{lx:.6f} vs flash-route {lk:.6f}: relative {e:.3g} <= "
+                  f"5e-3")
+    checks[f"{mode}_grad_check"] = out
+    del trainer, model, model32, params, frozen, gk, gp, g32, mb
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _distill_resume(run, torch, dev, work, batches, checks):
+    """CE, interrupted at step 2 and resumed, against the uninterrupted
+    run: losses equal."""
+    import gc
+    a, _ = _phi_small(torch, dev, "ce", 2, _distill_opt(), work / "a")
+    la = [a.step_on_batch(bt)[0] for bt in batches]
+    del a
+    b, _ = _phi_small(torch, dev, "ce", 2, _distill_opt(), work / "r")
+    for bt in batches[:2]:
+        b.step_on_batch(bt)
+    b.save()
+    del b
+    c, _ = _phi_small(torch, dev, "ce", 2, _distill_opt(), work / "r",
+                      seed=SEED + 5)
+    c.try_resume()
+    lc = [c.step_on_batch(bt)[0] for bt in batches[2:]]
+    del c
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"   distill ce 2-layer losses uninterrupted {la}, resumed steps "
+          f"3-4 {lc}", flush=True)
+    checks["ce_resume"] = dict(uninterrupted=la, resumed=lc)
+    run.check(lc == la[2:], "distill ce: resumed step 3-4 losses equal "
+              "the uninterrupted run's")
+
+
+def _distill_overfit(run, torch, dev, work, batch, checks):
+    """Constant lr 1e-4 on one repeated micro-batch: the CE loss falls."""
+    import gc
+    d, _ = _phi_small(torch, dev, "ce", 2, _distill_opt(
+        learning_rate=1e-4, lr_scheduler="constant", warmup_steps=0,
+        gradient_accumulation_steps=1), work / "d")
+    one = {k: v[:DIS_B] for k, v in batch.items()}
+    ld = [d.step_on_batch(one)[0] for _ in range(10)]
+    del d
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"   distill ce 2-layer, lr 1e-4, one micro-batch x 10 steps: "
+          f"losses {ld}", flush=True)
+    checks["ce_overfit"] = ld
+    run.check(ld[-1] < ld[0] - 0.5, f"distill CE loss falls on a repeated "
+              f"batch ({ld[0]:.4f} -> {ld[-1]:.4f}, by more than 0.5)")
 
 
 if __name__ == "__main__":

@@ -59,8 +59,11 @@
 //    a few instructions: the mask is two compares against per-row
 //    bounds, and only on tiles that cross an edge or carry segment ids;
 //    the exp is one MUFU.EX2.
-//  - Head dims 64 and 128 are native; 96 runs the 128 kernel through a
-//    96-column tensor map (zero-filled columns, exact zero products).
+//  - Head dims 64 and 128 are native; 80 (phi-2) and 96 (phi3-mini) run
+//    the 128 kernel through an 80- or 96-column tensor map: the second
+//    64-column box starts at column 64 and TMA fills the columns past D
+//    with zeros (exact zero products), and stores are masked to col < D.
+//    Every map stride is a 16-byte multiple (D * 2 bytes per head).
 //  - Tiles above the diagonal or outside the window are skipped (the
 //    Pallas `_block_live` rule), per block and per consumer warpgroup;
 //    ragged T and S tails read as zeros and are masked.
@@ -704,6 +707,10 @@ int launch_dkv(const CUtensorMap (&m)[4], const Args& a, int B,
   return (int)cudaGetLastError();
 }
 
+// head dims the kernels take: 64 and 128 natively, 80 and 96 through the
+// 128 kernel
+bool head_dim_ok(int D) { return D == 64 || D == 80 || D == 96 || D == 128; }
+
 }  // namespace
 
 // dQ and delta = rowsum(dout * out) ([B, H, T] fp32, for the dK/dV
@@ -717,7 +724,7 @@ extern "C" int dla_flash_bwd_dq(const void* q, const void* k, const void* v,
                                 int B, int H, int KH, int T, int S, int D,
                                 const long long* strides, float scale,
                                 int window, void* stream) {
-  if (D != 64 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.out = static_cast<const bf16*>(out);
   a.dout = static_cast<const bf16*>(dout);
@@ -749,7 +756,7 @@ extern "C" int dla_flash_bwd_dkv(const void* q, const void* k, const void* v,
                                  int H, int KH, int T, int S, int D,
                                  const long long* strides, float scale,
                                  int window, void* stream) {
-  if (D != 64 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.lse = static_cast<const float*>(lse);
   a.delta = const_cast<float*>(static_cast<const float*>(delta));
@@ -773,7 +780,7 @@ extern "C" int dla_flash_bwd_dkv(const void* q, const void* k, const void* v,
 // dynamic shared memory per block of the dQ (dkv = 0) or dK/dV (dkv = 1)
 // kernel at head dim D
 extern "C" int dla_flash_bwd_smem_bytes(int dkv, int D) {
-  if (D != 64 && D != 96 && D != 128) return -1;
+  if (!head_dim_ok(D)) return -1;
   if (dkv) return D == 64 ? DkvLayout<64>::BYTES : DkvLayout<128>::BYTES;
   return D == 64 ? DqLayout<64>::BYTES : DqLayout<128>::BYTES;
 }

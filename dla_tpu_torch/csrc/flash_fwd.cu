@@ -40,8 +40,11 @@
 //    S tails read as zeros (TMA) and are masked. GQA: query head h reads
 //    kv head h / (H / KH). Optional [B, T] / [B, S] int32 segment ids
 //    restrict attention to equal ids (packing).
-//  - Head dims 64 and 128 are native; 96 runs the 128 kernel through a
-//    96-column tensor map (zero-filled columns, exact zero products).
+//  - Head dims 64 and 128 are native; 80 (phi-2) and 96 (phi3-mini) run
+//    the 128 kernel through an 80- or 96-column tensor map: the second
+//    64-column box starts at column 64 and TMA fills the columns past D
+//    with zeros (exact zero products), and stores are masked to col < D.
+//    Every map stride is a 16-byte multiple (D * 2 bytes per head).
 //  - lse is [B, H, T] fp32 (natural log), -1e30 for a fully masked row,
 //    as the backward kernels read it.
 #include "common.cuh"
@@ -401,6 +404,10 @@ int launch(const CUtensorMap (&m)[3], const Args& a, int sms,
   return (int)cudaGetLastError();
 }
 
+// head dims the kernels take: 64 and 128 natively, 80 and 96 through the
+// 128 kernel
+bool head_dim_ok(int D) { return D == 64 || D == 80 || D == 96 || D == 128; }
+
 }  // namespace
 
 // strides: 12 element strides (b, head, row) of q, k, v, out in that
@@ -412,7 +419,7 @@ extern "C" int dla_flash_fwd(const void* q, const void* k, const void* v,
                              void* lse, int B, int H, int KH, int T, int S,
                              int D, const long long* strides, float scale,
                              int window, int sms, void* stream) {
-  if (D != 64 && D != 96 && D != 128) return (int)cudaErrorInvalidValue;
+  if (!head_dim_ok(D)) return (int)cudaErrorInvalidValue;
   Args a{};
   a.qseg = static_cast<const int*>(qseg);
   a.kseg = static_cast<const int*>(kseg);
@@ -437,6 +444,6 @@ extern "C" int dla_flash_fwd(const void* q, const void* k, const void* v,
 
 // dynamic shared memory per block of the forward kernel at head dim D
 extern "C" int dla_flash_fwd_smem_bytes(int D) {
-  if (D != 64 && D != 96 && D != 128) return -1;
+  if (!head_dim_ok(D)) return -1;
   return D == 64 ? FwdLayout<64>::BYTES : FwdLayout<128>::BYTES;
 }

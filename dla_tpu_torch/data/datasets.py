@@ -1,5 +1,6 @@
-"""Tokenized instruction examples with the reference's text contract and
-fixed batch shapes (``dla_tpu.data.datasets``, the SFT part).
+"""Tokenized instruction, preference and teacher-rollout examples with the
+reference's text contract and fixed batch shapes (``dla_tpu.data.datasets``,
+the SFT, preference and distillation parts).
 
 - template ``"{prompt}\\n\\n{response}{eos}"``; the tokens of
   ``"{prompt}\\n\\n"`` get label -100 when ``mask_prompt``
@@ -68,7 +69,8 @@ def pad_batch(examples: Sequence[Dict[str, np.ndarray]], pad_token_id: int,
 
 
 class _RecordDataset:
-    """Records from a list or a JSONL path, tokenized on access."""
+    """Records from a list or a JSONL path, tokenized on access; batches
+    padded to ``max_length`` (``pad_batch``)."""
 
     def __init__(self, tokenizer: Tokenizer, max_length: int,
                  path: Optional[str] = None,
@@ -81,6 +83,10 @@ class _RecordDataset:
 
     def __len__(self) -> int:
         return len(self.records)
+
+    def collate(self, batch: Sequence[Dict[str, np.ndarray]]
+                ) -> Dict[str, np.ndarray]:
+        return pad_batch(batch, self.tokenizer.pad_token_id, self.max_length)
 
 
 class InstructionDataset(_RecordDataset):
@@ -99,10 +105,6 @@ class InstructionDataset(_RecordDataset):
             self.tokenizer, rec["prompt"], rec["response"],
             self.max_length, self.mask_prompt)
 
-    def collate(self, batch: Sequence[Dict[str, np.ndarray]]
-                ) -> Dict[str, np.ndarray]:
-        return pad_batch(batch, self.tokenizer.pad_token_id, self.max_length)
-
 
 class PreferenceDataset(_RecordDataset):
     """Reward-model and DPO pairs: {prompt, chosen, rejected} records ->
@@ -120,3 +122,18 @@ class PreferenceDataset(_RecordDataset):
         return {side: pad_batch([ex[side] for ex in batch],
                                 self.tokenizer.pad_token_id, self.max_length)
                 for side in self.SIDES}
+
+
+class TeacherRolloutDataset(_RecordDataset):
+    """Distillation examples: {prompt, teacher_response, reward?} records.
+    Labels are the input ids (no prompt mask) and the scalar ``reward``
+    (default 1.0) rides along as a 0-d fp32 array."""
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        rec = self.records[idx]
+        ex = encode_prompt_response(
+            self.tokenizer, rec["prompt"], rec["teacher_response"],
+            self.max_length, mask_prompt=False)
+        ex["labels"] = ex["input_ids"].copy()
+        ex["reward"] = np.asarray(float(rec.get("reward", 1.0)), np.float32)
+        return ex

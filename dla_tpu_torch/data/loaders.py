@@ -1,13 +1,17 @@
-"""Instruction and preference records from local JSONL, alone or as a
-weighted mixture (``dla_tpu.data.loaders``, the SFT and preference
-parts). HF-hub sources need the network and the ``datasets`` package and
-raise."""
+"""Instruction, preference and teacher-rollout records from local JSONL,
+alone or as a weighted mixture (``dla_tpu.data.loaders``, the SFT,
+preference and distillation parts). HF-hub sources need the network
+and the ``datasets`` package and raise."""
 from __future__ import annotations
 
 import random
 from typing import Any, Dict, List, Tuple
 
-from dla_tpu_torch.data.datasets import InstructionDataset, PreferenceDataset
+from dla_tpu_torch.data.datasets import (
+    InstructionDataset,
+    PreferenceDataset,
+    TeacherRolloutDataset,
+)
 from dla_tpu_torch.data.jsonl import read_jsonl
 from dla_tpu_torch.data.packing import pack_preference_splits
 from dla_tpu_torch.data.tokenizers import Tokenizer
@@ -118,6 +122,18 @@ def build_preference_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,
         max_length=int(cfg.get("max_length",
                                cfg.get("max_seq_length", 1024))),
         records=load_preference_records(cfg, split),
+    )
+
+
+def build_teacher_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer
+                          ) -> TeacherRolloutDataset:
+    """Teacher rollouts ({prompt, teacher_response, reward?}) from
+    ``teacher_samples_path`` (else ``path``)."""
+    return TeacherRolloutDataset(
+        tokenizer=tokenizer,
+        max_length=int(cfg.get("max_length",
+                               cfg.get("max_seq_length", 2048))),
+        path=cfg.get("teacher_samples_path") or cfg.get("path"),
     )
 
 

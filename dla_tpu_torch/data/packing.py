@@ -1,6 +1,7 @@
 """Sequence packing: fill fixed-length rows with several examples
-(``dla_tpu.data.packing``, the instruction and preference parts). Packed rows carry
-``segment_ids`` (1, 2, ... per example, 0 = padding); the transformer
+(``dla_tpu.data.packing``, the instruction, teacher-rollout and
+preference parts). Packed rows carry ``segment_ids`` (1, 2, ... per
+example, 0 = padding); the transformer
 masks cross-segment attention and restarts positions per segment, so
 packing is loss-equivalent to unpacked batches. Placement is the JAX
 package's greedy first-fit, in Python (its native packer must match the
@@ -65,8 +66,9 @@ class PackedInstructionDataset:
         return len(self.rows)
 
     def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
-        L = self.max_length
-        return _pack_row([{k: v[:L] for k, v in self.base[i].items()}
+        L = self.max_length    # per-example scalars (a reward) stay out
+        return _pack_row([{k: v[:L] for k, v in self.base[i].items()
+                           if v.ndim}
                           for i in self.rows[idx]], L, self.pad_token_id)
 
     def collate(self, batch: Sequence[Dict[str, np.ndarray]]
@@ -77,6 +79,29 @@ class PackedInstructionDataset:
         """Fraction of token slots holding real tokens (1.0 = perfect)."""
         total = len(self.rows) * self.max_length
         return int(self.lengths.sum()) / max(total, 1)
+
+
+class PackedTeacherDataset(PackedInstructionDataset):
+    """Distillation rows packed from a ``TeacherRolloutDataset``: the
+    instruction packer's rows, plus each row's ``reward`` as the
+    token-weighted mean of its examples' rewards (the trainer re-weights
+    its ``reward_mean`` by row fill, so the logged value is the corpus
+    token-weighted mean under any packing)."""
+
+    def __init__(self, base, max_length: int):
+        super().__init__(base, max_length)
+        self.rewards = np.asarray(
+            [float(base.records[i].get("reward", 1.0))
+             for i in range(len(base))], np.float32)
+
+    def __getitem__(self, idx: int) -> Dict[str, np.ndarray]:
+        row = super().__getitem__(idx)
+        ex_idx = self.rows[idx]
+        w = self.lengths[ex_idx].astype(np.float32)
+        r = self.rewards[ex_idx]
+        row["reward"] = np.asarray(
+            float((w * r).sum() / max(w.sum(), 1.0)), np.float32)
+        return row
 
 
 def _pack_row(exs: Sequence[Dict[str, np.ndarray]], max_length: int,

@@ -1,4 +1,5 @@
-"""Decoder-only transformer (llama family) for PyTorch, single device.
+"""Decoder-only transformer (llama and phi families) for PyTorch, single
+device.
 
 The counterpart of ``dla_tpu.models.transformer.Transformer`` on the
 generation and SFT paths: initialisation, int8 weight quantization,
@@ -22,8 +23,15 @@ tails) and the decode kernel has no head_dim % 128 or 8-row group limit.
 There is no mesh: sharding constraints and shard_map wrappers have no
 counterpart here.
 
+The phi block (phi-2: one shared LayerNorm feeding attention and the
+MLP, biased projections, partial rotary, a GELU(tanh) fc1/fc2 MLP, the
+parallel residual ``x + attn + mlp``, a biased final LayerNorm and an
+untied, biased ``lm_head``) runs the training forward only:
+``init_cache``, ``prefill``, ``prefill_external`` and ``decode_step``
+raise for it until phi generation is ported (ROADMAP.md).
+
 Not ported yet (``__init__`` or ``hidden_states`` raises, naming the
-ROADMAP item): the phi / gemma / gemma2 block variants, alternating-layer
+ROADMAP item): the gemma / gemma2 block variants, alternating-layer
 sliding windows, MoE, LoRA, interleaved pipeline storage, pipeline
 parallelism, ``remat: dots``; multi-token ``decode_block`` and the paged
 serving entry points. Long flash-ineligible sequences take the full
@@ -48,7 +56,7 @@ from torch.utils.checkpoint import checkpoint
 from dla_tpu_torch.models.config import ModelConfig
 from dla_tpu_torch.ops import decode_kernel, flash_attention, quant_matmul
 from dla_tpu_torch.ops.attention import causal_attention, decode_attention
-from dla_tpu_torch.ops.norms import rms_norm
+from dla_tpu_torch.ops.norms import layer_norm, rms_norm
 from dla_tpu_torch.ops.rotary import apply_rotary, rotary_angles
 
 Params = Dict[str, Any]
@@ -66,8 +74,8 @@ def torch_dtype(name: str) -> torch.dtype:
 
 def _check_supported(cfg: ModelConfig) -> None:
     later = None
-    if cfg.arch != "llama":
-        later = f"arch '{cfg.arch}' (the phi/gemma/gemma2 block variants)"
+    if cfg.arch not in ("llama", "phi"):
+        later = f"arch '{cfg.arch}' (the gemma/gemma2 block variants)"
     elif cfg.num_experts > 0:
         later = "MoE layers (num_experts > 0)"
     elif cfg.lora_r > 0:
@@ -131,7 +139,27 @@ class Transformer(nn.Module):
         def zeros(*shape):
             return torch.zeros(shape, dtype=self.pdtype, device=dev)
 
-        params: Params = {
+        if cfg.arch == "phi":
+            # parallel-residual block: one shared input LayerNorm, biased
+            # projections, non-gated GELU MLP (fc1/fc2)
+            params: Params = {
+                "embed": {"embedding": mat((cfg.vocab_size, D), std)},
+                "layers": {
+                    "ln": ones(L, D), "ln_bias": zeros(L, D),
+                    "wq": mat((L, D, qdim), std), "wq_bias": zeros(L, qdim),
+                    "wk": mat((L, D, kvdim), std), "wk_bias": zeros(L, kvdim),
+                    "wv": mat((L, D, kvdim), std), "wv_bias": zeros(L, kvdim),
+                    "wo": mat((L, qdim, D), out_std), "wo_bias": zeros(L, D),
+                    "fc1": mat((L, D, F), std), "fc1_bias": zeros(L, F),
+                    "fc2": mat((L, F, D), out_std), "fc2_bias": zeros(L, D),
+                },
+                "final_norm": ones(D), "final_norm_bias": zeros(D),
+            }
+            if not cfg.tie_embeddings:
+                params["lm_head"] = mat((D, cfg.vocab_size), std)
+                params["lm_head_bias"] = zeros(cfg.vocab_size)
+            return params
+        params = {
             "embed": {"embedding": mat((cfg.vocab_size, D), std)},
             "layers": {
                 "attn_norm": ones(L, D),
@@ -225,6 +253,9 @@ class Transformer(nn.Module):
             ids.long(), params["embed"]["embedding"]).to(self.adtype)
 
     def _final_norm(self, params: Params, x: torch.Tensor) -> torch.Tensor:
+        if self.cfg.arch == "phi":
+            return layer_norm(x, params["final_norm"],
+                              params["final_norm_bias"], self.cfg.rms_norm_eps)
         return rms_norm(x, params["final_norm"], self.cfg.rms_norm_eps)
 
     def _proj(self, layer: Params, name: str,
@@ -277,7 +308,11 @@ class Transformer(nn.Module):
         cfg = self.cfg
         dh = cfg.head_dim_
         b, t, _ = x.shape
-        h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+        phi = cfg.arch == "phi"
+        if phi:
+            h = layer_norm(x, layer["ln"], layer["ln_bias"], cfg.rms_norm_eps)
+        else:
+            h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
         q = self._proj(layer, "wq", h).reshape(b, t, cfg.num_heads, dh)
         k = self._proj(layer, "wk", h).reshape(b, t, cfg.num_kv_heads, dh)
         v = self._proj(layer, "wv", h).reshape(b, t, cfg.num_kv_heads, dh)
@@ -285,7 +320,12 @@ class Transformer(nn.Module):
         k = apply_rotary(k, cos, sin, rotary_dim=cfg.rotary_dim_)
         attn = self._attention(q, k, v, kv_mask, positions, positions,
                                allow_flash, segment_ids)
-        x = x + self._proj(layer, "wo", attn.reshape(b, t, -1))
+        attn_out = self._proj(layer, "wo", attn.reshape(b, t, -1))
+        if phi:   # parallel residual: attention and MLP both read h
+            ff = torch.nn.functional.gelu(self._proj(layer, "fc1", h),
+                                          approximate="tanh")
+            return x + attn_out + self._proj(layer, "fc2", ff), (k, v)
+        x = x + attn_out
         h = rms_norm(x, layer["mlp_norm"], cfg.rms_norm_eps)
         return x + self._mlp(layer, h), (k, v)
 
@@ -406,6 +446,14 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------- KV cache
 
+    def _check_generation(self, entry: str) -> None:
+        """The generation entry points run the llama block only."""
+        if self.cfg.arch == "phi":
+            raise NotImplementedError(
+                f"Transformer.{entry}: phi prefill and decode are not ported "
+                "yet (ROADMAP.md §2, phi prefill and decode); the phi block "
+                "runs the training forward (hidden_states / apply) only")
+
     @property
     def _kv_int8(self) -> bool:
         return self.cfg.kv_cache_dtype == "int8"
@@ -428,6 +476,7 @@ class Transformer(nn.Module):
         valid [B, S], lengths [B] (next position per row), the host int
         ``step`` (decode steps taken) and ``col``, the column the next
         decode step writes, as a 0-dim int32 tensor on the device."""
+        self._check_generation("init_cache")
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim_)
@@ -458,6 +507,7 @@ class Transformer(nn.Module):
         logits [B, V], ks [L, B, T, KH, D], vs [L, B, T, KH, D]) in
         activation dtype. Prompts are right-padded; under flash no mask
         is built (pad keys sit above every real query's diagonal)."""
+        self._check_generation("prefill_external")
         cfg = self.cfg
         b, t = input_ids.shape
         dev = input_ids.device
@@ -489,6 +539,7 @@ class Transformer(nn.Module):
                 ) -> Tuple[torch.Tensor, Params]:
         """Run the prompt, writing columns [0, T) of a zero-filled cache
         in place. Returns (last-real-token logits [B, V], cache)."""
+        self._check_generation("prefill")
         t = input_ids.shape[1]
         logits, ks, vs = self.prefill_external(params, input_ids,
                                                attention_mask)
@@ -554,6 +605,7 @@ class Transformer(nn.Module):
         ``cache["col"]`` on the device (the host int ``step`` serves the
         cache-full check only), and the step makes no host
         synchronisation, so it can be captured in a CUDA graph."""
+        self._check_generation("decode_step")
         cfg = self.cfg
         if "prompt_width" not in cache:
             raise ValueError(

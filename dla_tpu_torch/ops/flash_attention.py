@@ -37,6 +37,9 @@ NAME = "flash_attention_fwd"
 NAME_DQ = "flash_attention_bwd_dq"
 NAME_DKV = "flash_attention_bwd_dkv"
 NEG_INF = -1e30
+# head dims the kernels take: 64 and 128 natively, 80 (phi-2) and 96
+# (phi3-mini) through the 128-wide kernels
+HEAD_DIMS = (64, 80, 96, 128)
 
 
 def _mask(t: int, s: int, device, segment_ids, kv_segment_ids,
@@ -127,9 +130,9 @@ def _check_inputs(q, k, v) -> None:
     if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash attention kernel takes bf16 q/k/v, got "
                          f"{q.dtype}/{k.dtype}/{v.dtype}")
-    if d not in (64, 96, 128):
-        raise ValueError(f"flash attention kernel takes head_dim 64, 96 or "
-                         f"128, got {d}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"flash attention kernel takes head_dim 64, 80, 96 "
+                         f"or 128, got {d}")
     if v.shape != k.shape or k.shape[0] != b or k.shape[3] != d \
             or h % k.shape[2]:
         raise ValueError(f"flash attention: shapes q {tuple(q.shape)} k "

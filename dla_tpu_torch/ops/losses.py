@@ -1,11 +1,11 @@
 """The alignment losses as plain functions (``dla_tpu.ops.losses``, the
-parts SFT, the reward model and DPO use): the reference's -100 label
-mask, log-prob gathers via logit[target] - logsumexp(logits), the
-Bradley-Terry pairwise loss and the DPO loss over per-sequence
-log-probs."""
+parts SFT, the reward model, DPO and distillation use): the reference's
+-100 label mask, log-prob gathers via logit[target] - logsumexp(logits),
+the Bradley-Terry pairwise loss, the DPO loss over per-sequence
+log-probs and the distillation KL over materialized logits."""
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -83,3 +83,23 @@ def pairwise_reward_loss(chosen_rewards: torch.Tensor,
     (``valid``-weighted on packed rows)."""
     return masked_mean(-F.logsigmoid(chosen_rewards - rejected_rewards),
                        valid)
+
+
+def kl_distill_loss(student_logits: torch.Tensor,
+                    teacher_logits: Sequence[torch.Tensor],
+                    mask: torch.Tensor,
+                    temperature: float = 1.0) -> torch.Tensor:
+    """Forward KL(mean of teachers || student), token-masked mean, times
+    temperature^2: teacher probabilities averaged over the ensemble, KL
+    summed over the vocabulary, next-token distributions (logits[:, :-1]
+    under mask[:, 1:]). The plain [B, T, V] version of
+    ``fused_ce.fused_kl_distill_loss``."""
+    s_logp = torch.log_softmax(
+        student_logits[:, :-1].float() / temperature, dim=-1)
+    t_probs = None
+    for tl in teacher_logits:
+        tp = torch.softmax(tl[:, :-1].float() / temperature, dim=-1)
+        t_probs = tp if t_probs is None else t_probs + tp
+    t_probs = t_probs / len(teacher_logits)
+    per_token = (t_probs * (torch.log(t_probs + 1e-20) - s_logp)).sum(-1)
+    return masked_mean(per_token, mask[:, 1:]) * (temperature ** 2)

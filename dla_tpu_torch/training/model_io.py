@@ -3,9 +3,11 @@
 
 The same config keys accept a checkpoint directory written by either
 package (or its ``latest`` pointer) or a registry preset / HF repo id
-(fresh random init), for a causal LM (``load_causal_lm``) or a reward
-model (``build_reward_model``). Local HF weight directories are not
-ported yet and raise.
+(fresh random init), for a causal LM (``load_causal_lm``; llama or phi
+blocks), a distillation teacher (``load_teacher``: a causal LM whose
+vocabulary must be the student's) or a reward model
+(``build_reward_model``). Local HF weight directories are not ported yet
+and raise.
 """
 from __future__ import annotations
 
@@ -145,6 +147,22 @@ def load_causal_lm(name_or_path: str, model_cfg: Dict[str, Any],
     cfg, tok = _preset(name_or_path, model_cfg, generator, device)
     model = Transformer(cfg)
     return ModelBundle(model, model.init(generator), tok, cfg)
+
+
+def load_teacher(name_or_path: str, model_cfg: Dict[str, Any],
+                 student_vocab: int,
+                 generator: Optional[torch.Generator] = None,
+                 device="cuda") -> ModelBundle:
+    """A distillation teacher, resolved as ``load_causal_lm`` does; KL
+    distillation needs the student's vocabulary, and another one
+    raises."""
+    tb = load_causal_lm(name_or_path, model_cfg, generator, device=device)
+    if tb.config.vocab_size != student_vocab:
+        raise ValueError(
+            f"teacher '{name_or_path}' vocab {tb.config.vocab_size} != "
+            f"student vocab {student_vocab}; KL distillation needs a shared "
+            "vocabulary")
+    return tb
 
 
 def build_reward_model(model_cfg: Dict[str, Any],

@@ -94,18 +94,27 @@ def test_fused_ce_loss_and_grads_match_jax(chunk):
 
 @pytest.mark.parametrize("case", ["bias", "softcap"])
 def test_model_fused_ce_refuses_bias_and_softcap(case):
-    """An lm_head bias or a final-logit softcap is not ported into the
-    fused CE: it raises instead of training another objective."""
+    """A final-logit softcap is not ported into the fused CE: it raises
+    instead of training another objective. An lm_head bias is ported
+    (phi-2's): the fused CE with it equals the CE of the materialized
+    logits, bias included, to 1e-5."""
     over = {"final_logit_softcap": 30.0} if case == "softcap" else {}
     model = Transformer(get_model_config("tiny", dtype="float32", **over))
     params = model.init(torch.Generator().manual_seed(0))
-    if case == "bias":
-        params["lm_head_bias"] = torch.zeros(model.cfg.vocab_size)
-    ids = torch.zeros(1, 8, dtype=torch.long)
-    with pytest.raises(NotImplementedError, match="architecture-branches"):
-        fused_ce.model_fused_ce(model, params, {
-            "input_ids": ids, "attention_mask": torch.ones_like(ids),
-            "labels": ids})
+    ids = torch.randint(3, 512, (2, 8), generator=torch.Generator()
+                        .manual_seed(1))
+    batch = {"input_ids": ids, "attention_mask": torch.ones_like(ids),
+             "labels": ids}
+    if case == "softcap":
+        with pytest.raises(NotImplementedError,
+                           match="architecture-branches"):
+            fused_ce.model_fused_ce(model, params, batch)
+        return
+    params["lm_head_bias"] = torch.randn(
+        model.cfg.vocab_size, generator=torch.Generator().manual_seed(2))
+    fused, _ = fused_ce.model_fused_ce(model, params, batch, chunk=5)
+    plain, _ = losses.cross_entropy_loss(model.apply(params, ids), ids)
+    np.testing.assert_allclose(float(fused), float(plain), rtol=1e-5)
 
 
 def test_unfused_losses_match_jax():

@@ -35,7 +35,11 @@ every fault, and the result lines are printed only when all passed):
              compared) and at the distill shape (B4 T2048 H32 KH32 D80:
              phi-2's head dim through the 128-wide kernels, MHA),
              right-padded, with packed segment ids and a window, at a
-             ragged T, and the autograd Function at D80;
+             ragged T, and the autograd Function at D80; the fused
+             categorical draw against ``ops.prng`` at [64, 128256]
+             (filtered logits) and a ragged [3, 1000], with one key and
+             per-row (seed, position) keys: equal tokens, gumbel noise
+             within 2e-6;
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
@@ -43,19 +47,22 @@ every fault, and the result lines are printed only when all passed):
              packed segment ids (bound from the live pairs of those ids;
              yardstick: SDPA given the block-diagonal causal mask, its
              backend named), and at the preference and distill shapes
-             (causal; SDPA with ``is_causal``);
+             (causal; SDPA with ``is_causal``); the draw at the rollout
+             shape beside its plain version and the exponential race it
+             replaced (bound: bytes vs its operations at the CUDA-core
+             rate; no PyTorch call computes threefry);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
              prompts of width 128, 256 new tokens, temperature 0.7,
-             top_p 0.9, no EOS), whose decode loop runs as one CUDA
-             graph. The first generate runs under torch.profiler: each
+             top_p 0.9, no EOS; a threefry key), whose decode loop runs
+             as one CUDA graph with the fused draw in it. The first generate runs under torch.profiler: each
              wrapper's count of the launches it issued (the prefill's,
              the first step's, the capture's) and the card's launches of
              each kernel counted in the trace (graph replays included)
              must equal the path's counts; outputs must be well formed
              and equal (tokens, logps, lengths) an eager loop of
-             ``build_decode_step`` from the same generator seed, and the
+             ``build_decode_step`` from the same key, and the
              logits of the prefill and 4 decode steps must match the
              same model running the plain versions (4 layers). Decode
              ms/step graphed and eager, and the device time of an eager
@@ -92,9 +99,25 @@ every fault, and the result lines are printed only when all passed):
              log-probs against the same pairs unpacked (same floor), an
              interrupted and resumed reward run (dropout on) against the
              uninterrupted one, and a loss that falls on one repeated
-             batch. The reward and DPO ``final/`` checkpoints stay for the
-             distill phase;
-7. distill — the configs' chain on: ``generate_teacher_data.main`` on the
+             batch. The SFT, reward and DPO ``final/`` checkpoints stay,
+             parameters only, for the rlhf and distill phases;
+7. rlhf    — ``train_rlhf.main`` on config/rlhf_config.yaml at full width
+             and depth as the configs chain it (policy and reference the
+             SFT checkpoint, the reward model the preference phase's),
+             byte tokenizer, flash on, 64 local prompts from the seed
+             (64 rows of 768 + 256 tokens, temperature 0.7, top_p 0.9),
+             cut to 2 rollouts, in three runs: reinforce; ppo (mini-batch
+             8, 1 epoch); gae with int8 rollout weights and an int8 KV
+             cache. Launch counts must equal the path's (#1, #2, #3 and
+             the draw; #4 and #5 in gae), losses, KL, rewards and grad
+             norms be finite, the first rollout's KL 0 exactly where
+             policy = reference (reinforce, ppo), ppo's first minibatch
+             clip fraction 0, clip fractions in [0, 1], and the final
+             (gae: also the plain-policy) checkpoint load back equal to
+             the trained parameters; then the trained policy's rollout is
+             timed (prefill, decode ms/step), traced (busy share) and, for
+             reinforce, held equal to an eager loop from the same key;
+8. distill — the configs' chain on: ``generate_teacher_data.main`` on the
              preference phase's DPO checkpoint, scored by its reward
              checkpoint (64 prompts from the seed, 256 new tokens), then
              ``train_distill.main`` on config/distill_config.yaml with
@@ -137,6 +160,11 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 BF16_FLOP_PER_S = 989e12      # dense bf16 tensor-core peak
+CUDA_CORE_OPS_PER_S = 67e12   # float32 outside the tensor cores
+# the fused draw's operations an element (csrc/sample.cu): threefry's 2 +
+# 20 x (add, rotate, xor) + 5 x 2 key injections, the counter, the
+# bits-to-float, two logs (one each), the add and the argmax compare
+DRAW_OPS = 88
 SEED = 0
 
 # the SFT path's shapes (llama3.2-1b, config/sft_config.yaml, micro 4)
@@ -161,6 +189,14 @@ PREF_TRAIN_RECORDS, PREF_EVAL_RECORDS = 64, 16
 
 PREF_WORK = ROOT / "build" / "chip_smoke_pref"
 
+# the RLHF path (config/rlhf_config.yaml): policy and reference the train
+# phase's SFT checkpoint, the preference phase's reward model; 64 rows of
+# 768-token prompts + 256 new tokens as configured, cut to 2 rollouts
+RLHF_CONFIG = ROOT / "config" / "rlhf_config.yaml"
+RLHF_WORK = ROOT / "build" / "chip_smoke_rlhf"
+RLHF_PROMPTS, RLHF_ROLLOUTS, RLHF_MINI = 64, 2, 8
+RLHF_EAGER_STEPS = 64    # decode steps held against the eager loop
+
 # the distill path (config/distill_config.yaml): the phi-2 preset student
 # (hidden 2560 = 32 heads x 80, MHA, vocab 51200), micro-batch 4 of
 # 2048-token right-padded rows as configured; teacher rollouts from the
@@ -177,6 +213,7 @@ DIS_LENS = [2048, 1210, 640, 333]    # parity's right-padded row lengths
 
 # the rollout path's shapes (llama3-8b, config/rlhf_config.yaml)
 B, PROMPT, NEW = 64, 128, 256
+TEMPERATURE, TOP_P = 0.7, 0.9
 HID, FFN, HEADS, KV_HEADS, HD, VOCAB, LAYERS = (
     4096, 14336, 32, 8, 128, 128256, 32)
 PROJ = {  # name: (K, N) of x [M, K] @ w [K, N]; count per layer
@@ -225,7 +262,7 @@ class _DiskPeak:
     deleted as soon as the next step has read it (``_delete_once_read``)
     and never lives beside the next save."""
 
-    DIRS = (SFT_WORK, PREF_WORK, DISTILL_WORK)
+    DIRS = (SFT_WORK, PREF_WORK, RLHF_WORK, DISTILL_WORK)
 
     def __init__(self):
         self.peak_gb = 0.0
@@ -239,6 +276,21 @@ class _DiskPeak:
 
 
 DISK = _DiskPeak()
+
+
+def _params_only(ckpt: Path) -> None:
+    """Delete a checkpoint's optimizer state (its ``opt_state.*`` leaves
+    and their files) once nothing will resume from it: the later phases
+    read its parameters only, and the chip's machine counts the disk's
+    high-water mark."""
+    index_path = ckpt / "index.json"
+    index = json.loads(index_path.read_text())
+    for name in [k for k in index["leaves"] if k.startswith("opt_state.")]:
+        meta = index["leaves"].pop(name)
+        for f in ([meta["file"]] if "file" in meta
+                  else [sh["file"] for sh in meta["shards"]]):
+            (ckpt / f).unlink(missing_ok=True)
+    index_path.write_text(json.dumps(index))
 
 
 @contextlib.contextmanager
@@ -318,6 +370,9 @@ def main() -> int:
     with run.phase("preference"):
         preference_run(run, torch, dev, _native)
 
+    with run.phase("rlhf"):
+        rlhf_run(run, torch, dev, _native)
+
     with run.phase("distill"):
         distill_run(run, torch, dev, _native)
 
@@ -335,7 +390,8 @@ def main() -> int:
         return 1
     missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "decode_attention",
-                           "int8_matmul") if k not in run.kernels]
+                           "int8_matmul", "categorical_draw")
+               if k not in run.kernels]
     if missing:
         print(f"chip_smoke: no numbers for {missing}", flush=True)
         return 1
@@ -606,7 +662,57 @@ def parity(run, torch, dev):
     parity_backward(run, torch, dev, g, errs)
     parity_preference(run, torch, dev, g)
     parity_distill(run, torch, dev, g)
+    parity_draw(run, torch, dev, g, errs)
     run.report["parity_max_err"] = errs
+
+
+def _draw_logits(torch, dev, g, b, v, filtered):
+    """fp32 logits of std 3; the rollout's are filtered (temperature 0.7,
+    top_p 0.9: most of the row at NEG_INF), as the sampler hands them to
+    the draw."""
+    from dla_tpu_torch.ops import sampling
+    x = torch.randn((b, v), generator=g, device=dev) * 3.0
+    if filtered:
+        x = sampling.filtered_logits(x, temperature=TEMPERATURE, top_p=TOP_P)
+    return x.contiguous()
+
+
+def parity_draw(run, torch, dev, g, errs):
+    """The fused draw against its plain version (``ops.prng``) on the
+    card: at the rollout's [64, 128256] (filtered) and a ragged [3,
+    1000], with one key (counters over [B, V]) and per row (seed,
+    position): tokens equal, and the kernel's gumbel noise within 2e-6
+    of the plain version's (precise logf on both sides; an ulp apart at
+    most)."""
+    import numpy as np
+    from dla_tpu_torch.ops import prng, sampling
+    worst = 0.0
+    for b, v, filtered in ((B, VOCAB, True), (3, 1000, False)):
+        logits = _draw_logits(torch, dev, g, b, v, filtered)
+        key = prng.fold_in(prng.PRNGKey(21), 10_000).to(dev)
+        seeds = torch.from_numpy(sampling.derive_rollout_seeds(7, b).astype(
+            np.int64)).to(dev)
+        pos = torch.arange(b, device=dev) * 3 + 5
+        for mode in ("batch key", "per-row seed, position"):
+            noise = torch.empty((b, v), dtype=torch.float32, device=dev)
+            if mode == "batch key":
+                tok = sampling.draw_categorical(key, logits, noise=noise)
+                ref_noise = prng.gumbel(key, (b, v))
+                ref = prng.categorical(key, logits)
+            else:
+                tok = sampling.draw_categorical_per_row(seeds, pos, logits,
+                                                        noise=noise)
+                keys = prng.row_keys(seeds, pos)
+                ref_noise = prng.gumbel_per_row(keys, v)
+                ref = prng.categorical_per_row(keys, logits)
+            torch.cuda.synchronize()
+            e = (noise - ref_noise).abs().max().item()
+            same = torch.equal(tok.long(), ref)
+            worst = max(worst, e)
+            run.check(same and e <= 2e-6 and tok.dtype == torch.int32,
+                      f"categorical draw [{b}, {v}] {mode}: tokens equal the "
+                      f"plain version's, gumbel max|err| {e:.3g} <= 2e-6")
+    errs["categorical_draw"] = worst
 
 
 def _segments(torch, dev, b, t, seed):
@@ -1013,6 +1119,56 @@ def timing(run, torch, dev):
     timing_sft(run, torch, dev, g)
     timing_preference(run, torch, dev, g)
     timing_distill(run, torch, dev, g)
+    timing_draw(run, torch, dev, g)
+
+
+def timing_draw(run, torch, dev, g):
+    """The fused draw at the rollout's [64, 128256] filtered logits beside
+    its plain version and the exponential race it replaces (softmax of
+    the filtered logits, Exp(1) noise from a generator, argmax of p /
+    noise: the port's earlier draw, which agreed with JAX in
+    distribution only). No PyTorch call computes threefry: no library time. Bound:
+    the logits read once and the tokens written, against the ops the
+    kernel does an element (DRAW_OPS, each logf counted as one) at the
+    table's CUDA-core rate."""
+    from dla_tpu_torch.ops import prng, sampling
+    nbytes = B * VOCAB * 4 + B * 4
+    ops = B * VOCAB * DRAW_OPS
+    t_b, t_o = nbytes / HBM_BYTES_PER_S, ops / CUDA_CORE_OPS_PER_S
+    bms, by = max(t_b, t_o) * 1e3, "bytes" if t_b >= t_o else "operations"
+    sets = [_draw_logits(torch, dev, g, B, VOCAB, True)
+            for _ in range(_copies(nbytes, most=4))]
+    key = prng.fold_in(prng.PRNGKey(21), 10_000).to(dev)
+    t_k = _time_ms(torch, [lambda s=s: sampling.draw_categorical(key, s)
+                           for s in sets * 4])
+    t_p = _time_ms(torch, [lambda s=s: prng.categorical(key, s)
+                           for s in sets[:1]], reps=3)
+    gen = _gen(torch, dev, SEED + 5)
+
+    def race(s):
+        probs = torch.softmax(s, dim=-1)
+        noise = torch.empty_like(probs).exponential_(1.0, generator=gen)
+        return (probs / noise).argmax(dim=-1)
+
+    t_race = _time_ms(torch, [lambda s=s: race(s) for s in sets * 2])
+    run.kernels["categorical_draw"] = dict(
+        name="categorical_draw", route="cuda",
+        source="dla_tpu_torch/csrc/sample.cu",
+        replaces="dla_tpu/ops/sampling.py:148 (jax.random.categorical, "
+                 "fused by XLA: no pallas_call); per row :209",
+        launches=None,
+        max_abs_err=run.report.get("parity_max_err", {}).get(
+            "categorical_draw"),
+        ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=by, library_ms=None,
+        exponential_race_ms=t_race,
+        unit="one draw: [64, 128256] fp32 filtered logits -> 64 tokens "
+             "(two launches: the row-chunk partials, then one warp a "
+             "row); bound: 32.8 MB or %d ops an element at %.0f T ops/s"
+             % (DRAW_OPS, CUDA_CORE_OPS_PER_S / 1e12))
+    print(f"   categorical_draw: {t_k:.4f} ms vs bound {bms:.4f} ({by}), "
+          f"plain {t_p:.4f}, the exponential race it replaced "
+          f"{t_race:.4f}",
+          flush=True)
 
 
 def _int8_step_sequence(torch, dev, g, qm):
@@ -1446,7 +1602,8 @@ def slice_run(run, torch, dev, native):
     mask = (np.arange(PROMPT)[None, :] < lens[:, None]).astype(np.int32)
     ids = torch.from_numpy(ids * mask).to(dev)
     mask = torch.from_numpy(mask).to(dev)
-    gen = GenerationConfig(max_new_tokens=NEW, temperature=0.7, top_p=0.9,
+    gen = GenerationConfig(max_new_tokens=NEW, temperature=TEMPERATURE,
+                           top_p=TOP_P,
                            do_sample=True, eos_token_id=-1, pad_token_id=0)
     generate = build_generate_fn(model, gen)
 
@@ -1461,16 +1618,16 @@ def slice_run(run, torch, dev, native):
     t0 = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        out = generate(params, ids, mask, _gen(torch, dev, SEED + 7))
+        out = generate(params, ids, mask, _key(SEED + 7))
         torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     wrapped = native.launch_counts()
     trace = _trace_kernels(torch, prof)
     del prof
     per_step = {"flash_attention_fwd": 0, "decode_attention": LAYERS,
-                "int8_matmul": 7 * LAYERS + 1}
+                "int8_matmul": 7 * LAYERS + 1, "categorical_draw": 1}
     prefill = {"flash_attention_fwd": LAYERS, "decode_attention": 0,
-               "int8_matmul": 7 * LAYERS + 1}
+               "int8_matmul": 7 * LAYERS + 1, "categorical_draw": 0}
     want_wrapped = {k: prefill[k] + 2 * v for k, v in per_step.items()}
     want = {k: prefill[k] + NEW * v for k, v in per_step.items()}
     counts = {k: sum(n for name, n in trace["launches"].items()
@@ -1515,18 +1672,18 @@ def slice_run(run, torch, dev, native):
     t_pre = time.perf_counter() - t0
     del logits, cache
     t0 = time.perf_counter()
-    out2 = generate(params, ids, mask, _gen(torch, dev, SEED + 8))
+    out2 = generate(params, ids, mask, _key(SEED + 8))
     torch.cuda.synchronize()
     t_gen2 = time.perf_counter() - t0
     t0 = time.perf_counter()
     e_toks, e_lps = _eager_decode(torch, model, params, ids, mask, gen,
-                                  _gen(torch, dev, SEED + 8))
+                                  _key(SEED + 8))
     torch.cuda.synchronize()
     t_eager = time.perf_counter() - t0
     same = (torch.equal(out2["response_tokens"], e_toks)
             and torch.equal(out2["response_logps"], e_lps))
     run.check(same, "the graphed generate's tokens and logps equal an eager "
-              "build_decode_step loop's from the same generator seed")
+              "build_decode_step loop's from the same key")
     run.check(bool((out2["lengths"] == mask.sum(1) + NEW).all()),
               "graphed generate #2: lengths = prompt + 256")
     dec = (t_gen2 - t_pre) / NEW
@@ -1600,18 +1757,28 @@ def slice_run(run, torch, dev, native):
                    slice_rep["decode_ms_per_step"])
 
 
-def _eager_decode(torch, model, params, ids, mask, gen, generator):
+def _key(n: int):
+    """The root key of seed ``SEED`` folded with ``n``, a [2] tensor on
+    the host (the generate fn moves it to the card)."""
+    from dla_tpu_torch.ops import prng
+    return prng.fold_in(prng.PRNGKey(SEED), n)
+
+
+def _eager_decode(torch, model, params, ids, mask, gen, key, new=NEW):
     """The rollout's decode as an eager loop of ``build_decode_step`` (the
-    public single-step API): (tokens [B, NEW], chosen-token logps), as
-    ``build_generate_fn`` computes them with no EOS."""
+    public single-step API) with step i under ``split(key, new)[i]``, as
+    ``build_generate_fn`` keys it: (tokens [B, new], chosen-token logps),
+    as ``build_generate_fn`` computes them with no EOS."""
     from dla_tpu_torch.generation.engine import build_decode_step
+    from dla_tpu_torch.ops import prng
     step = build_decode_step(model, gen)
-    logits, cache = model.start_decode(params, ids, mask, NEW)
+    keys = prng.split(key.to(ids.device), new)
+    logits, cache = model.start_decode(params, ids, mask, new)
     done = torch.zeros((ids.shape[0],), dtype=torch.bool, device=ids.device)
     toks, lps = [], []
-    for _ in range(NEW):
+    for i in range(new):
         prev = logits.float()
-        tok, _, logits, cache, done = step(generator, params, logits, cache,
+        tok, _, logits, cache, done = step(keys[i], params, logits, cache,
                                            done)
         lps.append(torch.log_softmax(prev, dim=-1).gather(
             1, tok[:, None].long())[:, 0])
@@ -1621,12 +1788,14 @@ def _eager_decode(torch, model, params, ids, mask, gen, generator):
 
 OUR_KERNELS = ("int8_mm_decode_kernel", "int8_mm_tma_kernel",
                "flash_fwd_kernel", "flash_bwd_dq_kernel",
-               "flash_bwd_dkv_kernel", "decode_attn_kernel")
+               "flash_bwd_dkv_kernel", "decode_attn_kernel",
+               "draw_partial_kernel", "draw_final_kernel")
 # each rollout wrapper's kernels, as their names read in a trace
 KERNEL_SYMBOLS = {"flash_attention_fwd": ("flash_fwd_kernel",),
                   "decode_attention": ("decode_attn_kernel",),
                   "int8_matmul": ("int8_mm_decode_kernel",
-                                  "int8_mm_tma_kernel")}
+                                  "int8_mm_tma_kernel"),
+                  "categorical_draw": ("draw_partial_kernel",)}
 
 
 def _trace_kernels(torch, prof):
@@ -1690,7 +1859,7 @@ def profile_decode(run, torch, model, params, ids, mask, gen, step_ms,
 
     from dla_tpu_torch.generation.engine import build_decode_step
     step = build_decode_step(model, gen)
-    g = _gen(torch, ids.device, SEED + 9)
+    g = _key(SEED + 9).to(ids.device)
     logits, cache = model.start_decode(params, ids, mask, 16)
     done = torch.zeros((ids.shape[0],), dtype=torch.bool, device=ids.device)
     step(g, params, logits, cache, done)          # warm
@@ -2216,6 +2385,9 @@ def preference_run(run, torch, dev, native):
         torch.cuda.empty_cache()
         run.check((SFT_WORK / "ckpt" / "final" / "index.json").is_file(),
                   "the train phase's SFT checkpoint is there to start from")
+        # the preference and RLHF phases read its parameters only
+        _params_only(SFT_WORK / "ckpt" / "final")
+        DISK.sample("SFT final's optimizer state dropped")
         print(f"   {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
               f"allocated at the start", flush=True)
         shutil.rmtree(work, ignore_errors=True)
@@ -2231,8 +2403,7 @@ def preference_run(run, torch, dev, native):
                                          work)),
             ("2-layer checks", lambda: pref_checks_2_layers(
                 run, torch, dev, work))])
-    finally:     # the reward and DPO finals stay for the distill phase
-        shutil.rmtree(SFT_WORK, ignore_errors=True)
+    finally:     # the SFT, reward and DPO finals stay for rlhf and distill
         for d in (work.iterdir() if work.is_dir() else ()):
             if d.name not in ("reward", "dpo"):
                 shutil.rmtree(d) if d.is_dir() else d.unlink()
@@ -2262,11 +2433,7 @@ def pref_cli(run, torch, dev, native, phase: str, work: Path):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     main_fn = train_reward.main if phase == "reward" else train_dpo.main
-    # DPO reads the SFT checkpoint twice (policy and reference), the last
-    # step that reads it
-    with (_delete_once_read(train_dpo, "load_causal_lm", SFT_WORK / "ckpt",
-                            2) if phase == "dpo" else contextlib.nullcontext()):
-        trainer = main_fn(_pref_argv(phase, work), device="cuda")
+    trainer = main_fn(_pref_argv(phase, work), device="cuda")
     torch.cuda.synchronize()
     t_cli = time.perf_counter() - t0
     counts = native.launch_counts()
@@ -2322,6 +2489,8 @@ def pref_cli(run, torch, dev, native, phase: str, work: Path):
               f"{'build_reward_model' if phase == 'reward' else 'load_causal_lm'}"
               f") equal to the trained parameters")
     del back
+    _params_only(final)       # later phases read its parameters only
+    DISK.sample(f"{phase} final's optimizer state dropped")
     save_s = trainer.last_save_s
 
     t_parts["load_back"] = time.perf_counter() - t0
@@ -2657,6 +2826,258 @@ def _pref_overfit(run, torch, dev, work, phase, rep):
 
 # ----------------------------------------------------------------- distill
 
+def _rlhf_argv(algo: str, work: Path):
+    """config/rlhf_config.yaml chained as configured: policy and reference
+    the SFT checkpoint's ``latest``, the reward model the preference
+    phase's final; the byte tokenizer, flash on (a preset's default is
+    the einsum), local prompts, and the run's cut: 2 rollouts (config:
+    1024). gae adds int8 rollout weights and an int8 KV cache."""
+    sft = str(SFT_WORK / "ckpt" / "latest")
+    sets = {"model.policy_model_name_or_path": sft,
+            "model.reference_model_name_or_path": sft,
+            "model.tokenizer": "byte",
+            "model.use_flash_attention": "true",
+            "reward_model.path": str(PREF_WORK / "reward" / "ckpt" / "final"),
+            "ppo.algo": algo,
+            "ppo.steps": RLHF_ROLLOUTS,                        # config: 1024
+            "sampling.source": "local",
+            "sampling.prompt_path": str(work / "prompts.jsonl"),
+            "logging.log_every_steps": 1,
+            "logging.output_dir": str(work / algo / "ckpt"),
+            "logging.log_dir": str(work / algo / "logs")}
+    if algo == "gae":
+        sets.update({"ppo.rollout_quantize_weights": "true",
+                     "model.kv_cache_dtype": "int8"})
+    argv = ["--config", str(RLHF_CONFIG)]
+    for k, v in sets.items():
+        argv += ["--set", f"{k}={v}"]
+    return argv
+
+
+def _rlhf_launches(algo: str):
+    """Wrapper launches of one RLHF CLI run: per rollout the prefill (#1,
+    and #5 on int8 weights, per layer), the decode step's eager first
+    run and its capture (the draw; #4 and #5 with int8), the three
+    scoring forwards (#1; #5 in the int8 policy's), and per optimizer
+    step the policy's forward twice under full remat and its backward
+    once (16 layers, one micro-step a minibatch)."""
+    L = SFT_LAYERS
+    updates = 1 if algo == "reinforce" else RLHF_PROMPTS // RLHF_MINI
+    per = {"flash_attention_fwd": L + 3 * L + 2 * L * updates,
+           "flash_attention_bwd_dq": L * updates,
+           "flash_attention_bwd_dkv": L * updates,
+           "categorical_draw": 2}
+    if algo == "gae":     # tied embeddings: no int8 lm_head
+        per["decode_attention"] = 2 * L
+        per["int8_matmul"] = 3 * 7 * L + 7 * L
+    return {k: v * RLHF_ROLLOUTS for k, v in per.items()}
+
+
+def rlhf_run(run, torch, dev, native):
+    import gc
+    import shutil
+    from dla_tpu_torch.data.jsonl import write_jsonl
+    work = RLHF_WORK
+    rep = {}
+    run.report["rlhf"] = rep
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        sft = SFT_WORK / "ckpt" / "final" / "index.json"
+        reward = PREF_WORK / "reward" / "ckpt" / "final" / "index.json"
+        run.check(sft.is_file() and reward.is_file(),
+                  "the SFT and reward checkpoints are there to start from")
+        shutil.rmtree(work, ignore_errors=True)
+        work.mkdir(parents=True)
+        write_jsonl(work / "prompts.jsonl",
+                    _distill_prompts(RLHF_PROMPTS, SEED + 2))
+        DISK.sample("rlhf start")
+        _run_parts(run, [(f"{algo} CLI", lambda algo=algo: rlhf_cli(
+            run, torch, dev, native, algo, work, rep))
+            for algo in ("reinforce", "ppo", "gae")])
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+        shutil.rmtree(SFT_WORK, ignore_errors=True)
+        rep["peak_disk_gb"] = DISK.peak_gb
+        print(f"   peak disk use under build/ so far: {DISK.peak_gb:.1f} GB",
+              flush=True)
+
+
+def rlhf_cli(run, torch, dev, native, algo: str, work: Path, rep):
+    """One RLHF CLI at full width and depth, its gates, its checkpoints
+    read back; then the trained policy's rollout timed, traced and held
+    against an eager loop."""
+    import gc
+    import shutil
+    import numpy as np
+    from dla_tpu_torch.checkpoint.checkpointer import load_tree_numpy
+    from dla_tpu_torch.training import model_io, train_rlhf
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    # the last run reads the SFT checkpoint last: policy and reference
+    with (_delete_once_read(train_rlhf, "load_causal_lm", SFT_WORK / "ckpt",
+                            2) if algo == "gae" else contextlib.nullcontext()):
+        trainer = train_rlhf.main(_rlhf_argv(algo, work), device="cuda")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    counts = native.launch_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    want = _rlhf_launches(algo)
+    print(f"   {algo}: CLI {t_cli:.1f} s, peak {peak:.2f} GiB, launches "
+          f"{counts}, expected {want}", flush=True)
+    run.check(counts == want, f"rlhf {algo} launch counts equal the path's")
+    rows = [json.loads(line) for line in (work / algo / "logs" /
+                                          "metrics.jsonl").read_text()
+            .splitlines()]
+    rows = [r for r in rows if "train/kl" in r]
+    stats = trainer.rollout_stats
+    keys = ("train/loss", "train/kl", "train/kl_coef", "train/reward_mean",
+            "train/rm_score_mean", "train/response_len",
+            "train/zero_len_responses")
+    grad_norms = [m["grad_norm"] for st in stats for m in st["metrics"]]
+    clip = [m["clip_frac"] for st in stats for m in st["metrics"]
+            if "clip_frac" in m]
+    series = {k: [r.get(k) for r in rows] for k in keys}
+    series.update(grad_norm=grad_norms, clip_frac=clip)
+    print(f"   {algo}: {json.dumps(series)}", flush=True)
+    run.check(len(rows) == RLHF_ROLLOUTS and all(
+        x is not None and np.isfinite(x) for v in series.values()
+        for x in v), f"rlhf {algo}: losses, KL, rewards and grad norms "
+        "finite")
+    run.check(all(0.0 <= c <= 1.0 for c in clip),
+              f"rlhf {algo}: clip fractions in [0, 1]")
+    if algo != "gae":    # policy = reference, same kernels, same inputs
+        run.check(rows[0]["train/kl"] == 0.0, f"rlhf {algo}: the first "
+                  f"rollout's KL is 0 exactly ({rows[0]['train/kl']})")
+    if algo == "ppo":
+        run.check(clip[0] == 0.0, "ppo: the first minibatch's clip "
+                  f"fraction is 0 ({clip[0]})")
+    ckpt = work / algo / "ckpt"
+    final = ckpt / "final"
+    ckpt_gb = sum(f.stat().st_size for d in ckpt.iterdir() if d.is_dir()
+                  for f in d.iterdir()) / 1e9
+    DISK.sample(f"rlhf {algo} checkpoints saved")
+    t1 = time.perf_counter()
+    policy = trainer.params["policy"] if algo == "gae" else trainer.params
+    back = model_io.load_causal_lm(str(ckpt / "latest"),
+                                   {"tokenizer": "byte"}, device="cpu")
+    ok = _params_equal(torch, back.params, policy)
+    if algo == "gae":
+        tree, _ = load_tree_numpy(str(final), prefix="params")
+        ok = ok and all(np.array_equal(
+            tree["value_head"][k], trainer.params["value_head"][k].detach()
+            .cpu().numpy()) for k in ("w", "b"))
+    run.check(ok, f"rlhf {algo}: {'policy/ and final/' if algo == 'gae' else 'final/'}"
+              " load back equal to the trained parameters")
+    t_load = time.perf_counter() - t1
+    model_cfg = back.config
+    del back
+    shutil.rmtree(ckpt, ignore_errors=True)
+    DISK.sample(f"rlhf {algo} checkpoints read back and deleted")
+    out = dict(cli_s=t_cli, load_back_s=t_load, launches=counts,
+               peak_mem_gib=peak, checkpoint_gb=ckpt_gb,
+               checkpoint_save_s=trainer.last_save_s, series=series,
+               rollout_s=[st["rollout_s"] for st in stats],
+               scoring_s=[st["score_s"] for st in stats],
+               update_ms_per_step=[st["update_s"] * 1e3 / len(st["losses"])
+                                   for st in stats],
+               updates_per_rollout=len(stats[0]["losses"]))
+    with torch.no_grad():
+        out.update(_rlhf_rollout_measure(run, torch, dev, algo, policy,
+                                         model_cfg, work))
+    rep[algo] = out
+    print(f"   rlhf {algo} " + json.dumps(out), flush=True)
+    for name, n in counts.items():
+        run.kernels.setdefault(name, {})[f"launches_rlhf_{algo}"] = n
+    del trainer, policy
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _rlhf_rollout_measure(run, torch, dev, algo, policy, model_cfg, work):
+    """The trained policy's rollout tree as the CLI builds it, on the
+    CLI's first prompts: prefill ms and a graphed generate (decode ms per
+    step), one generate traced (device busy share: kernel time over the
+    traced wall time), and, for reinforce, the graphed tokens and logps
+    against an eager ``build_decode_step`` loop from the same key."""
+    from torch.profiler import ProfilerActivity, profile
+    from dla_tpu_torch.data.jsonl import read_jsonl
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.generation.engine import (GenerationConfig,
+                                                 build_generate_fn,
+                                                 encode_prompt_batch)
+    from dla_tpu_torch.models.transformer import Transformer
+    from dla_tpu_torch.training.train_rlhf import PROMPT_TEMPLATE
+    cfg = dataclasses.replace(
+        model_cfg, attention="flash",
+        kv_cache_dtype="int8" if algo == "gae" else model_cfg.kv_cache_dtype)
+    model = Transformer(cfg)
+    rp = model.quantize_weights(policy) if algo == "gae" else policy
+    rp = model.activation_weights(rp)
+    tok = ByteTokenizer()
+    prompts = [PROMPT_TEMPLATE.format(prompt=r["prompt"]) for r in
+               read_jsonl(work / "prompts.jsonl")][:RLHF_PROMPTS]
+    width = cfg.max_seq_length - NEW
+    ids, mask = (torch.from_numpy(a).to(dev) for a in
+                 encode_prompt_batch(tok, prompts, width))
+    gen = GenerationConfig(max_new_tokens=NEW, temperature=TEMPERATURE,
+                           top_p=TOP_P, eos_token_id=tok.eos_token_id,
+                           pad_token_id=tok.pad_token_id)
+    generate = build_generate_fn(model, gen)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.start_decode(rp, ids, mask, NEW)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    del logits, cache
+    t0 = time.perf_counter()
+    out = generate(rp, ids, mask, _key(32))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    steps = int(out["response_mask"].sum(0).gt(0).sum())  # EOS may end it
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        generate(rp, ids, mask, _key(32))
+        torch.cuda.synchronize()
+        t_prof = time.perf_counter() - t0
+    from torch.autograd import DeviceType
+    per_name = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA:
+            per_name[e.name()] = per_name.get(e.name(), 0.0) + \
+                e.duration_ns() / 1e6
+    del prof
+    dev_ms = sum(per_name.values())
+    res = dict(prefill_ms=t_pre * 1e3, generate_s=t_gen,
+               decode_steps=steps,
+               decode_ms_per_step=(t_gen - t_pre) * 1e3 / max(steps, 1),
+               traced_generate_s=t_prof,
+               rollout_busy_share=dev_ms / 1e3 / t_prof,
+               rollout_device_ms_by_kind=_device_ms_by_kind(per_name),
+               rollout_top=[(k[:60], v) for k, v in sorted(
+                   per_name.items(), key=lambda kv: -kv[1])[:6]],
+               response_tokens_mean=float(out["response_mask"].sum(1)
+                                          .float().mean()))
+    if algo == "reinforce":
+        # the first 64 steps: a generate fn of that budget, graphed, and
+        # the eager loop from the same key
+        short = dataclasses.replace(gen, max_new_tokens=RLHF_EAGER_STEPS)
+        out = build_generate_fn(model, short)(rp, ids, mask, _key(33))
+        e_toks, e_lps = _eager_decode(torch, model, rp, ids, mask, short,
+                                      _key(33), new=RLHF_EAGER_STEPS)
+        live = out["response_mask"] > 0
+        same = (torch.equal(out["response_tokens"], e_toks)
+                and torch.equal(out["response_logps"], torch.where(
+                    live, e_lps, torch.zeros_like(e_lps))))
+        run.check(same, f"rlhf rollout: the graphed generate's tokens and "
+                  f"logps ({RLHF_EAGER_STEPS} steps) equal an eager "
+                  f"build_decode_step loop's from the same key")
+    return res
+
+
 def _distill_prompts(n: int, seed: int):
     """Prompts of 32..250 bytes (= byte-tokenizer tokens, inside the
     teacher CLI's 256-token prompt limit)."""
@@ -2783,12 +3204,16 @@ def distill_rollouts(run, torch, dev, native, work, finals, rep, disk):
     generate_teacher_data.main(argv, device="cuda")
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
+    shutil.rmtree(PREF_WORK, ignore_errors=True)     # read: not needed now
+    disk.sample("rollouts written, preference checkpoints deleted")
     counts = native.launch_counts()
     batches = -(-DIS_PROMPTS // DIS_GEN_BATCH)
-    want = {"flash_attention_fwd": 2 * SFT_LAYERS * batches}
+    want = {"flash_attention_fwd": 2 * SFT_LAYERS * batches,
+            "categorical_draw": 2 * batches}
     print(f"   teacher CLI: {t_gen:.1f} s, launches {counts}, expected "
           f"{want} (per batch of {DIS_GEN_BATCH}: the prefill and the "
-          f"reward forward, {SFT_LAYERS} layers each)", flush=True)
+          f"reward forward, {SFT_LAYERS} layers each; the draw in the "
+          f"decode step's eager first run and its capture)", flush=True)
     run.check(counts == want, "teacher generation launch counts equal the "
               "path's")
     rows = [json.loads(line) for line in out.read_text().splitlines()]
@@ -2810,8 +3235,6 @@ def distill_rollouts(run, torch, dev, native, work, finals, rep, disk):
         reward_mean=float(np.mean(rewards)),
         reward_std=float(np.std(rewards)))
     print(f"   rollouts: {json.dumps(rep['rollouts'])}", flush=True)
-    shutil.rmtree(PREF_WORK, ignore_errors=True)     # read: not needed now
-    disk.sample("rollouts written, preference checkpoints deleted")
 
 
 def _load_back_equal(torch, final: Path, trainer) -> bool:

@@ -7,8 +7,10 @@ under ``csrc/``, each with a plain PyTorch version beside its wrapper.
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 on CPU tensors every kernel wrapper computes its plain version.
 
-Ported so far: the int8 RLHF rollout generation path (contiguous-KV
-``generation.engine.build_generate_fn`` on llama-family models), with
-kernels for flash-attention forward, decode attention and the int8
-weight-only matmul. ROADMAP.md lists what follows.
+Ported so far: rollout generation (contiguous-KV
+``generation.engine.build_generate_fn``, sampling ``jax.random``'s
+tokens through ``ops.prng``), SFT, the reward model, DPO, PPO-RLHF and
+distillation, with kernels for flash attention (forward and backward),
+decode attention, the int8 weight-only matmul and the categorical draw.
+ROADMAP.md lists what follows.
 """

@@ -1,7 +1,7 @@
 """Instruction, preference and teacher-rollout records from local JSONL,
-alone or as a weighted mixture (``dla_tpu.data.loaders``, the SFT,
-preference and distillation parts). HF-hub sources need the network
-and the ``datasets`` package and raise."""
+alone or as a weighted mixture, and RLHF's bare prompts
+(``dla_tpu.data.loaders``). HF-hub sources need the network and the
+``datasets`` package and raise."""
 from __future__ import annotations
 
 import random
@@ -102,6 +102,24 @@ def load_preference_records(cfg: Dict[str, Any],
     if cfg.get("mixture") and split == "train":
         return _load_mixture(cfg, split, load_preference_records)
     return _local_records(cfg, split, ("path", "preference_path"))
+
+
+def load_prompt_records(cfg: Dict[str, Any],
+                        split: str = "train") -> List[str]:
+    """Bare prompt strings for RLHF rollouts: the ``prompt`` of each
+    record of ``prompt_path`` (else ``path``), cut to ``limit``, empty
+    prompts dropped."""
+    del split
+    if cfg.get("source", "local") == "hf":
+        raise NotImplementedError(
+            "sampling source 'hf' is not ported (it needs the network and "
+            "the datasets package; ROADMAP.md §1): set sampling.source=local "
+            "and point sampling.prompt_path at local JSONL")
+    path = cfg.get("prompt_path") or cfg.get("path")
+    if path is None:
+        raise ValueError("No prompt_path/path in sampling config")
+    prompts = [r["prompt"] for r in read_jsonl(path)]
+    return [p for p in _apply_limit(prompts, cfg.get("limit")) if p]
 
 
 def build_instruction_dataset(cfg: Dict[str, Any], tokenizer: Tokenizer,

@@ -16,24 +16,28 @@ the port's counterpart of the JAX package's jitted ``lax.scan`` /
 a capture needs), the step (sampling, ``decode_step``, the chosen
 token's logprob, the writes of the step's outputs at a device step
 counter) is captured once and replayed for the remaining steps. With an
-EOS the host checks ``done`` between replays. The graph draws from the
-caller's generator (registered with it), so its tokens equal the eager
-loop's from the same seed. CPU tensors run the eager loop.
+EOS the host checks ``done`` between replays. CPU tensors run the eager
+loop.
 
-Sampling draws from an explicit ``torch.Generator``; the per-request
-seeded mode (``per_request_seeds``, threefry ``fold_in``) is not ported
-yet and raises.
+Sampling is ``jax.random``'s, bit for bit (``ops.prng``, the fused draw
+kernel of ``ops.sampling``): the generate fn takes a key ([2] uint32
+words), splits it into one key per step as the JAX package does, and
+keeps the [n, 2] step keys on the device, indexed by the step counter,
+so the graph's replays draw what the eager loop draws. With
+``per_request_seeds`` it takes [B*G] row seeds instead, and token k of
+row i is drawn with ``fold_in(PRNGKey(seed_i), k)``.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
 from dla_tpu_torch.models.transformer import Transformer
-from dla_tpu_torch.ops.sampling import sample_token
+from dla_tpu_torch.ops import prng
+from dla_tpu_torch.ops.sampling import sample_token, sample_token_per_row
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +51,16 @@ class GenerationConfig:
     eos_token_id: int = 2
     pad_token_id: int = 0
     early_exit_chunk: int = 0
+
+    @classmethod
+    def from_dict(cls, d: Optional[Dict[str, Any]], **defaults
+                  ) -> "GenerationConfig":
+        """Fields of ``d`` over ``defaults``; keys that are not fields
+        are ignored."""
+        fields = {f.name for f in dataclasses.fields(cls)}
+        d = dict(d or {})
+        return cls(**{**defaults, **{k: v for k, v in d.items()
+                                     if k in fields}})
 
 
 def left_align(ids: torch.Tensor, mask: torch.Tensor
@@ -79,12 +93,12 @@ def build_prefill_step(model: Transformer, max_new_tokens: int):
 
 
 def build_decode_step(model: Transformer, gen: GenerationConfig):
-    """``fn(generator, params, logits, cache, done) -> (tok, emit_mask,
-    logits, cache, done)``: sample from the incoming logits, hold finished
-    rows at pad, advance the KV cache (in place)."""
-    def decode_step(generator, params, logits, cache, done):
+    """``fn(key, params, logits, cache, done) -> (tok, emit_mask, logits,
+    cache, done)``: sample from the incoming logits under ``key``, hold
+    finished rows at pad, advance the KV cache (in place)."""
+    def decode_step(key, params, logits, cache, done):
         tok = sample_token(
-            generator, logits, temperature=gen.temperature,
+            key, logits, temperature=gen.temperature,
             top_p=gen.top_p, top_k=gen.top_k, do_sample=gen.do_sample)
         tok = torch.where(done, torch.full_like(tok, gen.pad_token_id), tok)
         emit_mask = ~done
@@ -112,8 +126,8 @@ def _expand(cache: Dict[str, Any], group: int) -> Dict[str, Any]:
 
 def build_generate_fn(model: Transformer, gen: GenerationConfig,
                       group_size: int = 1, per_request_seeds: bool = False):
-    """Returns ``fn(params, input_ids, attention_mask, generator)`` -> dict
-    of tensors:
+    """Returns ``fn(params, input_ids, attention_mask, key)`` -> dict of
+    tensors:
 
       sequences/sequence_mask  [B, P+N]  prompt + response, left-aligned
       response_tokens/response_mask [B, N]
@@ -121,19 +135,17 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
         distribution (zero where the mask is zero)
       lengths [B] total real tokens (prompt + generated, incl. eos)
 
-    ``group_size`` G > 1: B unique prompts are prefilled once and their
-    prefill state expanded G-fold before decode, rows laid out grouped
-    ([p0 s0..sG-1, p1 s0..sG-1, ...])."""
-    if per_request_seeds:
-        raise NotImplementedError(
-            "per_request_seeds needs a bit-exact threefry fold_in/"
-            "categorical port, which arrives with the serving slice "
-            "(ROADMAP.md)")
+    ``key`` is a [2] key (``ops.prng``); step i draws with ``split(key,
+    n)[i]``. ``group_size`` G > 1: B unique prompts are prefilled once
+    and their prefill state expanded G-fold before decode, rows laid out
+    grouped ([p0 s0..sG-1, p1 s0..sG-1, ...]). ``per_request_seeds``
+    swaps the last argument for [B*G] uint32 row seeds: token k of row i
+    is drawn with ``fold_in(PRNGKey(seeds[i]), k)``."""
     single_step = build_decode_step(model, gen)
     eos = gen.eos_token_id if gen.eos_token_id is not None else -1
 
     @torch.no_grad()
-    def generate(params, input_ids, attention_mask, generator):
+    def generate(params, input_ids, attention_mask, rng):
         b, _ = input_ids.shape
         n = gen.max_new_tokens
         dev = input_ids.device
@@ -155,15 +167,37 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
         # logits, done and the step counter `at` are carried from step to
         # step in place
         at = torch.zeros((1,), dtype=torch.int64, device=dev)
+        if per_request_seeds:
+            seeds = torch.as_tensor(rng).to(device=dev, dtype=torch.int64)
+            if seeds.shape != (b,):
+                raise ValueError(f"per_request_seeds takes [{b}] seeds, got "
+                                 f"{tuple(seeds.shape)}")
+            temps = torch.full((b,), float(gen.temperature)
+                               if gen.do_sample else 0.0, device=dev)
+            top_ps = torch.full((b,), float(gen.top_p), device=dev)
+            top_ks = torch.full((b,), int(gen.top_k), dtype=torch.int32,
+                                device=dev)
+        else:
+            keys = prng.split(torch.as_tensor(rng).to(dev), max(n, 1))
 
         def body():
             """One step; every tensor it carries to the next step is
             updated in place (what a graph replay needs)."""
             prev = logits.float()
-            tok, emit_mask, new_logits, _, new_done = single_step(
-                generator, params, logits, cache, done)
-            logp = torch.log_softmax(prev, dim=-1).gather(
-                1, tok[:, None].long())[:, 0]
+            if per_request_seeds:
+                tok, logp = sample_token_per_row(
+                    seeds, at.expand(b), prev, temps, top_ps, top_ks)
+                tok = torch.where(done, torch.full_like(
+                    tok, gen.pad_token_id), tok)
+                emit_mask = ~done
+                new_done = done | (tok == eos)
+                new_logits, _ = model.decode_step(params, cache, tok)
+            else:
+                tok, emit_mask, new_logits, _, new_done = single_step(
+                    keys.index_select(0, at)[0], params, logits, cache,
+                    done)
+                logp = torch.log_softmax(prev, dim=-1).gather(
+                    1, tok[:, None].long())[:, 0]
             toks.index_copy_(0, at, tok[None])
             emits.index_copy_(0, at, emit_mask[None])
             lps.index_copy_(0, at, logp[None])
@@ -172,7 +206,7 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
             at.add_(1)
 
         if dev.type == "cuda" and n > 0:
-            _decode_graphed(body, done, n, eos >= 0, generator, dev)
+            _decode_graphed(body, done, n, eos >= 0, dev)
         else:
             for _ in range(n):
                 if eos >= 0 and bool(done.all()):
@@ -200,7 +234,7 @@ def build_generate_fn(model: Transformer, gen: GenerationConfig,
 
 
 def _decode_graphed(body, done: torch.Tensor, n: int, check_eos: bool,
-                    generator: torch.Generator, dev: torch.device) -> None:
+                    dev: torch.device) -> None:
     """Run ``body`` (one decode step, state updated in place) ``n`` times
     on the card: step 1 eagerly, on the stream the capture uses (it is
     the warm-up too), then the step captured once as a CUDA graph and
@@ -216,7 +250,6 @@ def _decode_graphed(body, done: torch.Tensor, n: int, check_eos: bool,
     if n == 1 or (check_eos and bool(done.all())):
         return
     graph = torch.cuda.CUDAGraph()
-    graph.register_generator_state(generator)
     with torch.cuda.graph(graph, stream=stream):
         body()
     for _ in range(n - 1):
@@ -247,12 +280,11 @@ class GenerationEngine:
         return encode_prompt_batch(self.tokenizer, prompts, max_prompt_len)
 
     def generate_text(self, params, prompts, max_prompt_len: int,
-                      generator: torch.Generator
-                      ) -> Tuple[list, Dict[str, Any]]:
+                      rng: torch.Tensor) -> Tuple[list, Dict[str, Any]]:
         ids, mask = self.encode_prompts(prompts, max_prompt_len)
         dev = params["embed"]["embedding"].device
         out = self._fn(params, torch.from_numpy(ids).to(dev),
-                       torch.from_numpy(mask).to(dev), generator)
+                       torch.from_numpy(mask).to(dev), rng)
         resp = out["response_tokens"].cpu().numpy()
         rmask = out["response_mask"].cpu().numpy()
         texts = []

@@ -10,7 +10,8 @@ the head run in fp32.
 Dropout on the pooled feature is drawn from the ``torch.Generator`` the
 caller passes; with none there is no dropout (deterministic eval), as in
 the JAX package with no dropout rng. The masks are other bits than
-``jax.random``'s until the threefry port (ROADMAP.md §1). LoRA adapters
+``jax.random``'s (the threefry port, ``ops.prng``, serves the
+samplers). LoRA adapters
 (``init_lora`` / ``merge_lora``) are not ported yet: a config with
 ``lora_r`` > 0 raises in ``Transformer``.
 """

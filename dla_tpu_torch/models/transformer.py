@@ -225,6 +225,29 @@ class Transformer(nn.Module):
             new["lm_head_wscale"] = scale
         return new
 
+    def activation_weights(self, params: Params) -> Params:
+        """A copy of a parameter tree whose leaves the forward casts to
+        the activation dtype on every use (the dense matrices, their
+        biases, the embedding table, ``lm_head`` and its bias) are cast
+        once; norms keep their dtype (the norms compute in fp32). Every
+        forward over it computes exactly what it computes over ``params``,
+        without casting the master weights at each layer of each step.
+        int8 matrices and their scales stay as they are."""
+        def cast(t: torch.Tensor) -> torch.Tensor:
+            return t.to(self.adtype) if t.is_floating_point() else t
+
+        mats = self._WEIGHT_ONLY_MATS + ("fc1", "fc2")
+        layers = {k: (cast(v) if k in mats or (k.endswith("_bias") and
+                                                k[:-5] in mats) else v)
+                  for k, v in params["layers"].items()}
+        out = {**params, "layers": layers,
+               "embed": {**params["embed"],
+                         "embedding": cast(params["embed"]["embedding"])}}
+        for k in ("lm_head", "lm_head_bias"):
+            if k in params:
+                out[k] = cast(params[k])
+        return out
+
     def _weight(self, container: Params, name: str) -> torch.Tensor:
         """The named matrix in activation dtype (int8 dequantized with an
         fp32 multiply, the product cast once)."""

@@ -75,6 +75,11 @@ _SIGNATURES = {
                              _I, _I, _I, _I, _I, _I, _F, _F, _I, _P],
     # D, cache_int8 -> dynamic shared memory bytes per block
     "dla_decode_attention_smem_bytes": [_I, _I],
+    # logits, key (or null), seeds, positions (or null), partial values,
+    # partial indices, out, noise (or null), B, V, stream
+    "dla_categorical_draw": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # V -> partials per row
+    "dla_categorical_draw_chunks": [_I],
 }
 
 _lock = threading.Lock()

@@ -1,8 +1,9 @@
-"""The alignment losses as plain functions (``dla_tpu.ops.losses``, the
-parts SFT, the reward model, DPO and distillation use): the reference's
--100 label mask, log-prob gathers via logit[target] - logsumexp(logits),
-the Bradley-Terry pairwise loss, the DPO loss over per-sequence
-log-probs and the distillation KL over materialized logits."""
+"""The alignment losses as plain functions (``dla_tpu.ops.losses``): the
+reference's -100 label mask, log-prob gathers via logit[target] -
+logsumexp(logits), the Bradley-Terry pairwise loss, the DPO loss over
+per-sequence log-probs, the distillation KL over materialized logits,
+and RLHF's: REINFORCE with a baseline, the clipped PPO surrogate per
+sequence and per token, GAE advantages and the clipped value loss."""
 from __future__ import annotations
 
 from typing import Optional, Sequence, Tuple
@@ -103,3 +104,79 @@ def kl_distill_loss(student_logits: torch.Tensor,
     t_probs = t_probs / len(teacher_logits)
     per_token = (t_probs * (torch.log(t_probs + 1e-20) - s_logp)).sum(-1)
     return masked_mean(per_token, mask[:, 1:]) * (temperature ** 2)
+
+
+# ------------------------------------------------------------------ RLHF
+
+
+def reinforce_loss(policy_logp: torch.Tensor,
+                   advantages: torch.Tensor) -> torch.Tensor:
+    """REINFORCE with a baseline: -(advantage.detach() * logp).mean(),
+    over [B] sequence-mean log-probs."""
+    return -(advantages.detach() * policy_logp).mean()
+
+
+def ppo_clip_loss(policy_logp: torch.Tensor, behavior_logp: torch.Tensor,
+                  advantages: torch.Tensor, clip_ratio: float = 0.2
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The clipped PPO surrogate over [B] sequence log-probs (behavior
+    log-probs and advantages detached). Returns (loss, clip_frac: the
+    share of ratios more than ``clip_ratio`` from 1)."""
+    adv = advantages.detach()
+    ratio = torch.exp(policy_logp - behavior_logp.detach())
+    clipped = torch.clamp(ratio, 1 - clip_ratio, 1 + clip_ratio) * adv
+    loss = -torch.minimum(ratio * adv, clipped).mean()
+    clip_frac = ((ratio - 1.0).abs() > clip_ratio).float().mean()
+    return loss, clip_frac
+
+
+def gae_advantages(rewards: torch.Tensor, values: torch.Tensor,
+                   action_mask: torch.Tensor, gamma: float = 1.0,
+                   lam: float = 0.95) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Generalized Advantage Estimation over each row's contiguous action
+    region, [B, T] in and out: positions past the last action are
+    terminal (V := 0), positions outside it carry no advantage. Returns
+    (advantages, returns = advantages + values), zeroed off-action. A
+    backward loop over T stands in for the JAX package's reverse
+    ``lax.scan``; the inputs are detached."""
+    m = action_mask.float()
+    rewards, values = rewards.detach(), values.detach()
+    m_next = torch.cat([m[:, 1:], torch.zeros_like(m[:, :1])], dim=1)
+    v_next = torch.cat([values[:, 1:], torch.zeros_like(values[:, :1])],
+                       dim=1) * m_next
+    delta = (rewards + gamma * v_next - values) * m
+    adv = torch.zeros_like(delta)
+    carry = torch.zeros_like(delta[:, 0])
+    for t in range(delta.shape[1] - 1, -1, -1):
+        carry = delta[:, t] + gamma * lam * m_next[:, t] * carry
+        adv[:, t] = carry
+    adv = adv * m
+    return adv, (adv + values) * m
+
+
+def ppo_token_loss(policy_logp: torch.Tensor, behavior_logp: torch.Tensor,
+                   advantages: torch.Tensor, action_mask: torch.Tensor,
+                   clip_ratio: float = 0.2
+                   ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The clipped surrogate per token [B, T], mean over action tokens.
+    Returns (loss, clip_frac over action tokens)."""
+    adv = advantages.detach()
+    ratio = torch.exp(policy_logp - behavior_logp.detach())
+    clipped = torch.clamp(ratio, 1 - clip_ratio, 1 + clip_ratio) * adv
+    loss = -masked_mean(torch.minimum(ratio * adv, clipped), action_mask)
+    clip_frac = masked_mean(((ratio - 1.0).abs() > clip_ratio).float(),
+                            action_mask)
+    return loss, clip_frac
+
+
+def ppo_value_loss(values: torch.Tensor, behavior_values: torch.Tensor,
+                   returns: torch.Tensor, action_mask: torch.Tensor,
+                   value_clip: float = 0.2) -> torch.Tensor:
+    """The clipped (PPO2) value loss: half the action-token mean of the
+    larger of the squared errors of the values and of the values clipped
+    to ``value_clip`` around their rollout-time estimates."""
+    ret, v_old = returns.detach(), behavior_values.detach()
+    v_clip = v_old + torch.clamp(values - v_old, -value_clip, value_clip)
+    err = torch.square(values - ret)
+    err_clip = torch.square(v_clip - ret)
+    return 0.5 * masked_mean(torch.maximum(err, err_clip), action_mask)

@@ -7,7 +7,9 @@ arguments:
       --model_name_or_path checkpoints/run/final \
       --prompts_path prompts.jsonl --output_path rollouts.jsonl
 
-Batch sampling with temperature/top-p, the prompt stripped from the
+Batch sampling with temperature/top-p (batch ``start`` drawn under
+``fold_in(PRNGKey(seed), 100 + start)``, the JAX CLI's key, so the same
+checkpoint and seed give its tokens), the prompt stripped from the
 response, streamed JSONL ``{prompt, teacher_response}``; with
 ``--reward_model_path`` a reward model (``build_reward_model``) scores
 each generated sequence (prompt + response) and the record gains a
@@ -22,8 +24,9 @@ import torch
 
 from dla_tpu_torch.data.jsonl import append_jsonl, read_jsonl
 from dla_tpu_torch.generation.engine import GenerationConfig, GenerationEngine
+from dla_tpu_torch.ops import prng
 from dla_tpu_torch.training.model_io import build_reward_model, load_causal_lm
-from dla_tpu_torch.training.utils import seed_everything
+from dla_tpu_torch.training.utils import root_key, seed_everything
 
 PROMPT_TEMPLATE = "{prompt}\n\n"
 
@@ -55,7 +58,8 @@ def main(argv=None, device="cuda") -> None:
         raise NotImplementedError(
             "--draft_model_name_or_path: speculative decoding is not ported "
             "yet (ROADMAP.md)")
-    generator = seed_everything(args.seed, device)
+    generator = seed_everything(args.seed, device)   # preset weights
+    rng = root_key(args.seed)
     model_cfg = {"tokenizer": args.tokenizer} if args.tokenizer else {}
     bundle = load_causal_lm(args.model_name_or_path, model_cfg, generator,
                             device=device)
@@ -89,7 +93,8 @@ def main(argv=None, device="cuda") -> None:
         padded = chunk + [chunk[-1]] * (args.batch_size - len(chunk))
         templated = [PROMPT_TEMPLATE.format(prompt=p) for p in padded]
         texts, out = engine.generate_text(
-            bundle.params, templated, args.max_prompt_length, generator)
+            bundle.params, templated, args.max_prompt_length,
+            prng.fold_in(rng, 100 + start))
         rewards = None
         if rm is not None:
             with torch.no_grad():

@@ -19,8 +19,8 @@ Trainer provides:
 - the random stream of micro-step i of step s: a generator seeded from
   (seed, s, i) and made afresh, so a resumed run draws what the
   uninterrupted run drew. Its bits are not ``jax.random``'s (the
-  threefry PRNG port, ROADMAP.md §1), so dropout masks equal the
-  JAX package's in distribution only;
+  threefry port, ``ops.prng``, serves the samplers), so dropout masks
+  equal the JAX package's in distribution only;
 - the frozen tree: no autograd leaves, no optimizer state, not in the
   checkpoint; a frozen leaf that shares storage with a trained one is
   copied before the first step (DPO's reference = the starting policy);
@@ -163,8 +163,13 @@ class Trainer:
         return self.leaves[0].device
 
     def _to_device(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        return _tree_map(
-            lambda v: torch.from_numpy(np.asarray(v)).to(self.device), batch)
+        """Host arrays copied to the device; tensors moved only if they
+        lie elsewhere (a batch already on the card stays where it is)."""
+        def put(v):
+            if torch.is_tensor(v):
+                return v.to(self.device)
+            return torch.from_numpy(np.asarray(v)).to(self.device)
+        return _tree_map(put, batch)
 
     def generator(self, step: int, index: int,
                   for_eval: bool = False) -> torch.Generator:
@@ -179,8 +184,10 @@ class Trainer:
 
     def step_on_batch(self, np_batch: Dict[str, Any]
                       ) -> Tuple[float, Dict[str, float]]:
-        """One optimizer step on a host batch of ``global_batch`` rows
-        (flat or nested dicts of arrays). Returns (loss, metrics incl.
+        """One optimizer step on a batch of ``global_batch`` rows (flat or
+        nested dicts of host arrays, or of tensors: the RLHF loop's
+        rollout tensors stay on the card, as the JAX Trainer's
+        ``step_on_device_batch`` takes them). Returns (loss, metrics incl.
         grad_norm)."""
         rows = _leaves(np_batch)[0].shape[0]
         if rows % self.accum:

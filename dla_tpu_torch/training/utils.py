@@ -1,6 +1,8 @@
-"""Training utilities: seeding, throughput timing, the windowed running
-loss and the JSONL metrics log (``dla_tpu.training.utils`` and
-``dla_tpu.utils.logging``, single process)."""
+"""Training utilities: seeding (a torch generator, or a threefry root key
+for the CLIs that draw ``jax.random``'s bits), throughput timing, the
+windowed running loss and the JSONL metrics log
+(``dla_tpu.training.utils`` and ``dla_tpu.utils.logging``, single
+process)."""
 from __future__ import annotations
 
 import collections
@@ -14,12 +16,24 @@ from typing import Any, Dict, Optional
 import numpy as np
 import torch
 
+from dla_tpu_torch.ops import prng
+
 
 def seed_everything(seed: int, device) -> torch.Generator:
     """Seed host RNGs and return the run's root generator on ``device``."""
     random.seed(seed)
     np.random.seed(seed % (2 ** 32))
     return torch.Generator(device=device).manual_seed(seed)
+
+
+def root_key(seed: int) -> torch.Tensor:
+    """Seed the host RNGs and return the run's root key
+    ``prng.PRNGKey(seed)`` ([2] uint32 words on the host): the JAX
+    package's ``seed_everything``, whose ``jax.random.key(seed)`` holds
+    the same data. Keys folded from it draw ``jax.random``'s bits."""
+    random.seed(seed)
+    np.random.seed(seed % (2 ** 32))
+    return prng.PRNGKey(seed)
 
 
 class StepTimer:

@@ -124,6 +124,17 @@ def worker(tree: Path) -> dict:
             "c_launch_us": statistics.median(launch[WARMUP * 100:]) * 1e6}
 
 
+def _rng(torch, dev, seed: int):
+    """The generate fn's last argument in the tree under test: a threefry
+    key where the tree has ``ops/prng.py``, else (an older tree) a torch
+    generator."""
+    try:
+        from dla_tpu_torch.ops import prng
+    except ImportError:
+        return torch.Generator(device=dev).manual_seed(seed)
+    return prng.PRNGKey(seed)
+
+
 def decode_worker(tree: Path) -> dict:
     sys.path.insert(0, str(tree))
     import numpy as np
@@ -154,7 +165,7 @@ def decode_worker(tree: Path) -> dict:
     generate = build_generate_fn(model, GenerationConfig(
         max_new_tokens=new, temperature=0.7, top_p=0.9, do_sample=True,
         eos_token_id=-1, pad_token_id=0))
-    generate(params, ids, mask, torch.Generator(device=dev).manual_seed(7))
+    generate(params, ids, mask, _rng(torch, dev, 7))
     steps, rates = [], []
     for i in range(DECODE_REPS):
         torch.cuda.synchronize()
@@ -163,8 +174,7 @@ def decode_worker(tree: Path) -> dict:
         torch.cuda.synchronize()
         t_pre = time.perf_counter() - t0
         t0 = time.perf_counter()
-        generate(params, ids, mask,
-                 torch.Generator(device=dev).manual_seed(8 + i))
+        generate(params, ids, mask, _rng(torch, dev, 8 + i))
         torch.cuda.synchronize()
         t_gen = time.perf_counter() - t0
         steps.append((t_gen - t_pre) / new * 1e3)

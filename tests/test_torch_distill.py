@@ -361,3 +361,36 @@ def test_generation_to_distillation_chain_on_cpu(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="shared vocabulary"):
         train_distill.main(_distill_argv(tmp_path / "w", student, 1, 4,
                                          **wide), device="cpu")
+
+
+def test_teacher_cli_records_match_jax(tmp_path, monkeypatch):
+    """The teacher CLI keys each batch as the JAX CLI does (``fold_in(
+    PRNGKey(seed), 100 + start)``): from the same checkpoint, prompts and
+    seed its records equal the JAX CLI's, prompt and response token for
+    token (3 batches of 4, the last one padded), and the rewards of a
+    reward checkpoint both packages load agree to 1e-5."""
+    from dla_tpu.training import generate_teacher_data as j_teacher
+    from test_torch_rlhf import reward_checkpoint
+    monkeypatch.chdir(ROOT)
+    prompts = tmp_path / "prompts.jsonl"
+    write_jsonl(prompts, [{"prompt": r["prompt"][:24]}
+                          for r in _rollouts(10, seed=5)])
+    ckpt = str(ROOT / "checkpoints" / "run" / "final")
+    rm = reward_checkpoint(tmp_path / "reward")
+    out = {}
+    for name, run in (("j", j_teacher.main), ("t", lambda a:
+                      generate_teacher_data.main(a, device="cpu"))):
+        out[name] = tmp_path / f"{name}.jsonl"
+        run(["--model_name_or_path", ckpt, "--reward_model_path", rm,
+             "--prompts_path", str(prompts), "--output_path",
+             str(out[name]), "--batch_size", "4", "--max_prompt_length",
+             "32", "--max_new_tokens", "12", "--seed", "21"])
+    rows = {k: [json.loads(line) for line in p.read_text().splitlines()]
+            for k, p in out.items()}
+    assert len(rows["t"]) == len(rows["j"]) == 10
+    for mine, theirs in zip(rows["t"], rows["j"]):
+        assert mine["prompt"] == theirs["prompt"]
+        assert mine["teacher_response"] == theirs["teacher_response"]
+        np.testing.assert_allclose(mine["reward"], theirs["reward"],
+                                   rtol=1e-5, atol=1e-5)
+    assert len({r["teacher_response"] for r in rows["t"]}) > 1

@@ -3,9 +3,10 @@
 Greedy decoding on the committed fp32 checkpoint must give EXACTLY the
 JAX package's tokens, masks and lengths (logps to 1e-4), under the
 fixed-length schedule, per-step early exit on EOS, and group_size > 1.
-Sampling draws from a torch.Generator (other bits than jax.random): the
-filtered distribution must match JAX's to 1e-6, and seeded draws must be
-reproducible and never land on a filtered-out token."""
+The filtered distribution must match JAX's to 1e-6. Sampling draws
+``jax.random``'s bits (``ops.prng``): from the same key, or the same
+per-request seeds, sampled generation gives the JAX package's tokens,
+masks and lengths, and the response logps to 1e-5."""
 from pathlib import Path
 
 import jax
@@ -20,6 +21,7 @@ from dla_tpu.generation.engine import build_generate_fn as j_build
 from dla_tpu.models.config import ModelConfig as JModelConfig
 from dla_tpu.models.transformer import Transformer as JTransformer
 from dla_tpu.ops.sampling import filtered_probs as j_filtered_probs
+from dla_tpu.ops.sampling import sample_token as j_sample_token
 from dla_tpu_torch.data.tokenizers import ByteTokenizer
 from dla_tpu_torch.generation.engine import (
     GenerationConfig,
@@ -29,6 +31,7 @@ from dla_tpu_torch.generation.engine import (
 from dla_tpu_torch.models.config import ModelConfig
 from dla_tpu_torch.models.transformer import Transformer
 from dla_tpu_torch.models.weights import params_from_jax
+from dla_tpu_torch.ops import prng
 from dla_tpu_torch.ops.sampling import filtered_probs, sample_token
 from dla_tpu_torch.training.model_io import load_causal_lm
 
@@ -64,7 +67,7 @@ def _run_both(models, group_size=1, **gen_kw):
     tout = build_generate_fn(bundle.model, GenerationConfig(
         do_sample=False, **gen_kw), group_size=group_size)(
         bundle.params, torch.from_numpy(ids), torch.from_numpy(mask),
-        torch.Generator().manual_seed(0))
+        prng.PRNGKey(0))
     return ({k: np.asarray(v) for k, v in jout.items()},
             {k: v.numpy() for k, v in tout.items()})
 
@@ -122,7 +125,7 @@ def test_group_size_two_rollout_config_expands_the_cache(cache):
     ids, mask = (torch.from_numpy(a) for a in _prompts())
     gen = GenerationConfig(do_sample=False, max_new_tokens=5,
                            eos_token_id=-1)
-    g = torch.Generator().manual_seed(0)
+    g = prng.PRNGKey(0)
     two = build_generate_fn(tm, gen, group_size=2)(tq, ids, mask, g)
     jout = j_build(jm, JGen(do_sample=False, max_new_tokens=5,
                             eos_token_id=-1), group_size=2)(
@@ -147,7 +150,7 @@ def test_generate_text_greedy(models):
                               GenerationConfig(max_new_tokens=8,
                                                do_sample=False))
     texts, out = engine.generate_text(bundle.params, ["hello", "abc"], 16,
-                                      torch.Generator().manual_seed(0))
+                                      prng.PRNGKey(0))
     assert len(texts) == 2 and all(isinstance(t, str) for t in texts)
     assert out["response_tokens"].shape == (2, 8)
 
@@ -166,25 +169,69 @@ def test_filtered_probs_match_jax(kw):
 
 
 def test_seeded_sampling_reproducible_and_filtered():
-    logits = torch.from_numpy(
-        np.random.RandomState(7).randn(64, 500).astype(np.float32) * 4)
+    """``sample_token`` from a key: the JAX package's tokens from the same
+    key (20 keys folded from one root), reproducible, never on a
+    filtered-out token, and another key gives another stream."""
+    logits = np.random.RandomState(7).randn(64, 500).astype(np.float32) * 4
     kw = dict(temperature=0.7, top_p=0.9)
+    root, jroot = prng.PRNGKey(123), jax.random.key(123)
     draws = []
-    for _ in range(2):
-        g = torch.Generator().manual_seed(123)
-        draws.append(torch.stack([sample_token(g, logits, **kw)
-                                  for _ in range(20)]))
-    assert torch.equal(draws[0], draws[1])
-    probs = filtered_probs(logits, **kw)
-    picked = probs.gather(1, draws[0].T.long())
-    assert (picked > 0).all()
-    # a different seed gives a different stream
-    other = sample_token(torch.Generator().manual_seed(124), logits, **kw)
-    assert not torch.equal(other, draws[0][0])
+    for step in range(20):
+        tok = sample_token(prng.fold_in(root, step), torch.from_numpy(logits),
+                           **kw)
+        want = j_sample_token(jax.random.fold_in(jroot, step),
+                              jnp.asarray(logits), **kw)
+        np.testing.assert_array_equal(tok.numpy(), np.asarray(want))
+        draws.append(tok)
+    draws = torch.stack(draws)
+    again = sample_token(prng.fold_in(root, 0), torch.from_numpy(logits), **kw)
+    assert torch.equal(again, draws[0])
+    probs = filtered_probs(torch.from_numpy(logits), **kw)
+    assert (probs.gather(1, draws.T.long()) > 0).all()
+    other = sample_token(prng.PRNGKey(124), torch.from_numpy(logits), **kw)
+    assert not torch.equal(other, draws[0])
 
 
-def test_per_request_seeds_not_ported(models):
-    _, _, bundle = models
-    with pytest.raises(NotImplementedError, match="threefry"):
-        build_generate_fn(bundle.model, GenerationConfig(),
-                          per_request_seeds=True)
+def _run_sampled(models, group_size, per_request_seeds, **gen_kw):
+    jm, jp, bundle = models
+    ids, mask = _prompts()
+    b = ids.shape[0] * group_size
+    kw = dict(temperature=0.7, top_p=0.9, **gen_kw)
+    if per_request_seeds:
+        seeds = (np.arange(b, dtype=np.uint64) * 2654435761 + 5
+                 ).astype(np.uint32)
+        jkey, key = jnp.asarray(seeds), torch.from_numpy(
+            seeds.astype(np.int64))
+    else:
+        jkey = jax.random.fold_in(jax.random.key(21), 10_000)
+        key = prng.fold_in(prng.PRNGKey(21), 10_000)
+    jout = j_build(jm, JGen(**kw), group_size=group_size,
+                   per_request_seeds=per_request_seeds)(
+        jp, jnp.asarray(ids), jnp.asarray(mask), jkey)
+    tout = build_generate_fn(bundle.model, GenerationConfig(**kw),
+                             group_size=group_size,
+                             per_request_seeds=per_request_seeds)(
+        bundle.params, torch.from_numpy(ids), torch.from_numpy(mask), key)
+    return ({k: np.asarray(v) for k, v in jout.items()},
+            {k: v.numpy() for k, v in tout.items()})
+
+
+@pytest.mark.parametrize("group_size,per_request_seeds,eos", [
+    (1, False, -1), (2, False, -1), (1, True, -1), (2, True, -1),
+    (2, True, "mid")])
+def test_per_request_seeds_match_jax(models, group_size, per_request_seeds,
+                                     eos):
+    """Sampled generation (temperature 0.7, top_p 0.9) from the same key
+    or the same [B*G] row seeds as the JAX package: equal sequences,
+    masks, tokens and lengths, logps to 1e-5, with group_size 1 and 2,
+    batch keys and per-request seeds, and with an EOS that finishes rows
+    at different steps."""
+    if eos == "mid":
+        _, fixed = _run_sampled(models, group_size, per_request_seeds,
+                                max_new_tokens=10, eos_token_id=-1)
+        eos = int(fixed["response_tokens"][0, 3])
+    jout, tout = _run_sampled(models, group_size, per_request_seeds,
+                              max_new_tokens=10, eos_token_id=eos)
+    if eos >= 0:
+        assert not tout["response_mask"].all()
+    _assert_same(jout, tout, logp_atol=1e-5)

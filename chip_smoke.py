@@ -39,7 +39,11 @@ every fault, and the result lines are printed only when all passed):
              categorical draw against ``ops.prng`` at [64, 128256]
              (filtered logits) and a ragged [3, 1000], with one key and
              per-row (seed, position) keys: equal tokens, gumbel noise
-             within 2e-6;
+             within 2e-6; decode attention at phi-2's head dim 80 (bf16
+             and int8 caches at the eval's B8 H32 S512, device and host
+             fills, the self column alone, few pairs split over a
+             cluster) and the int8 matmul at phi-2's shapes (M 8 and
+             2048; the lm_head's N 51200);
 3. timing  — CUDA-event medians of each kernel, its plain version and a
              one-call PyTorch yardstick, beside the least time the card
              could take (bytes / 3.35 TB/s vs FLOPs / 989 TFLOP/s); the
@@ -50,7 +54,11 @@ every fault, and the result lines are printed only when all passed):
              (causal; SDPA with ``is_causal``); the draw at the rollout
              shape beside its plain version and the exponential race it
              replaced (bound: bytes vs its operations at the CUDA-core
-             rate; no PyTorch call computes threefry);
+             rate; no PyTorch call computes threefry); the eval's shapes:
+             decode attention at D80 (phi-2 B8, fill 500 of 512, int8 and
+             bf16 caches; SDPA on the dequantized cache), the int8 matmul
+             over one phi-2 decode step at M 8, the flash forward at the
+             eval prefills (B8 T256 of llama3.2-1b, phi-2, Mistral-7B);
 4. slice   — llama3-8b at full width and depth (random weights from a
              seed): flash attention, int8 KV, int8 weight tree, then
              build_generate_fn with the RLHF config's sampling (B=64
@@ -136,7 +144,30 @@ every fault, and the result lines are printed only when all passed):
              loss against the flash route's, an interrupted and resumed
              CE run against the uninterrupted one, and a loss that falls
              on a repeated batch. Each checkpoint is deleted as soon as
-             the next step has read it; the peak disk use is printed.
+             the next step has read it, but for the KL final (parameters
+             only), kept with the SFT and DPO finals for the eval phase;
+             the peak disk use is printed;
+9. eval    — ``eval_alignment.main`` on config/eval_config.yaml with the
+             ``mistralai/Mistral-7B-v0.1`` preset as ``base`` (random
+             weights, full width and depth) and the chain's SFT, DPO
+             and distill (phi-2) finals, on local JSONL from the seed
+             (``safety_hh``, a hub benchmark, dropped), generation as
+             configured (batch 8, prompt width 256, 256 new tokens,
+             temperature 0.7, top_p 0.9), cut to 16 prompts a benchmark
+             and 32 pairs; then again with an int8 KV cache on
+             ``alignment_local`` (#4 at D128, D64 and D80). Each model's
+             wrapper launches must equal its path's, every model x
+             benchmark have its metrics, rates lie in [0, 1], lengths be
+             >= 0 and perplexities finite over > 0 tokens. Then the
+             distill final as an int8 weight tree over an int8 cache
+             through the graphed generate (8 prompts, 256 tokens):
+             wrapper and card launches equal the path's (#1, #4 at D80,
+             #5 at phi-2's shapes, the draw), tokens and logps equal an
+             eager loop's, 4-layer logits match the plain versions;
+             ``package_report`` over the distill KL run's metrics, the
+             eval's directory and the teacher rollouts; ``hf_export`` of
+             the SFT final, imported back equal. The finals are deleted
+             at the end; the peak disk use must stay under 45 GiB.
 
 Last lines: the card's name and power limit (nvidia-smi), a JSON line of
 per-kernel numbers, and ``{"ok": true, "device": {...}}``. Exits non-zero
@@ -211,6 +242,22 @@ DIS_PROMPTS, DIS_NEW, DIS_GEN_BATCH = 64, 256, 8   # the teacher CLI's batch
 DIS_TEMPERATURE = 2.0
 DIS_LENS = [2048, 1210, 640, 333]    # parity's right-padded row lengths
 
+# the eval path (config/eval_config.yaml): the Mistral-7B preset as
+# ``base`` (random weights, full width and depth: 32 layers, 32 x 128
+# heads, 8 kv heads, window 4096) and the chain's SFT, DPO and distill
+# finals, on local JSONL from the seed; generation as configured (batch 8,
+# prompt width 256, 256 new tokens, temperature 0.7, top_p 0.9), cut to
+# 16 prompts a benchmark and 32 pairs
+EVAL_CONFIG = ROOT / "config" / "eval_config.yaml"
+EVAL_WORK = ROOT / "build" / "chip_smoke_eval"
+EVAL_BASE, EVAL_BASE_LAYERS = "mistralai/Mistral-7B-v0.1", 32
+EVAL_PROMPTS, EVAL_PAIRS = 16, 32     # config: 512 / 256 and 512
+EVAL_B, EVAL_WIDTH, EVAL_NEW = 8, 256, 256
+EVAL_FILL = 500                       # #4's timed fill of the S = 512 cache
+# phi-2's projections (K, N) of x [M, K] @ w [K, N]; count per layer
+PHI_PROJ = {"wq": (2560, 2560), "wk": (2560, 2560), "wv": (2560, 2560),
+            "wo": (2560, 2560), "fc1": (2560, 10240), "fc2": (10240, 2560)}
+
 # the rollout path's shapes (llama3-8b, config/rlhf_config.yaml)
 B, PROMPT, NEW = 64, 128, 256
 TEMPERATURE, TOP_P = 0.7, 0.9
@@ -259,10 +306,11 @@ class _DiskPeak:
     """The largest total size, sampled when asked, of the checkpoint
     directories the phases keep under build/. The chip's machine counts
     the high-water mark of what its disk holds, so a checkpoint is
-    deleted as soon as the next step has read it (``_delete_once_read``)
-    and never lives beside the next save."""
+    deleted as soon as the next step has read it (``_delete_once_read``),
+    and those the eval phase reads (the SFT, DPO and distill finals) are
+    kept with their parameters only."""
 
-    DIRS = (SFT_WORK, PREF_WORK, RLHF_WORK, DISTILL_WORK)
+    DIRS = (SFT_WORK, PREF_WORK, RLHF_WORK, DISTILL_WORK, EVAL_WORK)
 
     def __init__(self):
         self.peak_gb = 0.0
@@ -376,6 +424,9 @@ def main() -> int:
     with run.phase("distill"):
         distill_run(run, torch, dev, _native)
 
+    with run.phase("eval"):
+        eval_run(run, torch, dev, _native)
+
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
@@ -390,8 +441,9 @@ def main() -> int:
         return 1
     missing = [k for k in ("flash_attention_fwd", "flash_attention_bwd_dq",
                            "flash_attention_bwd_dkv", "decode_attention",
-                           "int8_matmul", "categorical_draw")
-               if k not in run.kernels]
+                           "decode_attention_d80", "int8_matmul",
+                           "categorical_draw")
+               if "ms" not in run.kernels.get(k, {})]
     if missing:
         print(f"chip_smoke: no numbers for {missing}", flush=True)
         return 1
@@ -663,6 +715,7 @@ def parity(run, torch, dev):
     parity_preference(run, torch, dev, g)
     parity_distill(run, torch, dev, g)
     parity_draw(run, torch, dev, g, errs)
+    parity_eval(run, torch, dev, g, errs)
     run.report["parity_max_err"] = errs
 
 
@@ -1120,6 +1173,7 @@ def timing(run, torch, dev):
     timing_preference(run, torch, dev, g)
     timing_distill(run, torch, dev, g)
     timing_draw(run, torch, dev, g)
+    timing_eval(run, torch, dev, g)
 
 
 def timing_draw(run, torch, dev, g):
@@ -1532,6 +1586,196 @@ def timing_distill(run, torch, dev, g):
     torch.cuda.empty_cache()
 
 
+def parity_eval(run, torch, dev, g, errs):
+    """#4 at phi-2's head dim 80 (bf16 and int8 caches at the eval's B8 H32
+    S512 with device and host fills, the self column alone, and g 4 / 8
+    at few pairs, where S splits over a cluster) and #5 at phi-2's
+    shapes (decode M 8, prefill M 2048, the lm_head's N 51200), each
+    against its plain version."""
+    from dla_tpu_torch.ops import _native
+    from dla_tpu_torch.ops import decode_kernel as dk
+    from dla_tpu_torch.ops import quant_matmul as qm
+    sms = _native.sm_count(dev)
+    phi = dict(b=EVAL_B, s=EVAL_WIDTH + EVAL_NEW, kh=DIS_H, g_rows=1,
+               d=DIS_HD)
+    worst = 0.0
+    for label, kw in [
+            ("phi B8 H32 D80 int8, device fill 500 of 512, NaN past it",
+             dict(phi, fill=EVAL_FILL)),
+            ("phi shape, bf16 cache, device fill 500",
+             dict(phi, fill=EVAL_FILL, int8=False)),
+            ("phi shape int8, host-int fill 257", dict(phi, fill=257,
+                                                       fill_dev=False)),
+            ("phi shape int8, fill 0 (self column only)", dict(phi, fill=0)),
+            ("D80 int8 g4, fill 333 of S1024, few pairs",
+             dict(fill=333, b=2, s=1024, kh=2, g_rows=4, d=DIS_HD)),
+            ("D80 bf16 g8, fill 777 of S1024, few pairs",
+             dict(fill=777, b=2, s=1024, kh=2, g_rows=8, d=DIS_HD,
+                  int8=False))]:
+        inp = _decode_inputs(torch, dev, g, **kw)
+        out = _call_decode(dk.flash_decode_attention, inp)
+        ref = _call_decode(dk.flash_decode_attention_plain, inp)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        b_, s_, kh_ = inp["k_cache"].shape[:3]
+        run.check(e <= 2e-2 and torch.isfinite(out.float()).all().item(),
+                  f"decode {label} (split "
+                  f"{dk.decode_split(b_ * kh_, s_, sms)}): max|err| {e:.3g} "
+                  "<= 2e-2")
+        worst = max(worst, e)
+    errs["decode_attention_d80"] = worst
+    worst = 0.0
+    shapes = [(m, k, n) for m in (EVAL_B, EVAL_B * EVAL_WIDTH)
+              for k, n in PHI_PROJ.values()] + [(EVAL_B, 2560, DIS_VOCAB)]
+    for m, k, n in dict.fromkeys(shapes):
+        x, w, sc = _int8_inputs(torch, dev, g, m, k, n)
+        out = qm.int8_matmul(x, w, sc)
+        ref = qm.int8_matmul_plain(x, w, sc)
+        torch.cuda.synchronize()
+        e = (out.float() - ref.float()).abs().max().item()
+        tol = 1e-2 * ref.float().abs().max().item()
+        p = qm.plan(m, n, k, sms)
+        run.check(e <= tol, f"int8_matmul phi-2 M{m} K{k} N{n} ({p.path}, "
+                  f"{p.tile_n} columns, {p.splits} splits): max|err| "
+                  f"{e:.3g} <= {tol:.3g}")
+        worst = max(worst, e)
+        del x, w, sc, out, ref
+    errs["int8_matmul_phi"] = worst
+
+
+def timing_eval(run, torch, dev, g):
+    """The eval's kernel shapes: #4 at D80 (phi-2 B8 H32, S512, fill 500;
+    int8 and bf16 caches) beside its plain version, its byte bound and
+    SDPA on the dequantized cache; #5 over one phi-2 decode step at M 8
+    (6 projections x 32 layers + the lm_head, each shape's median summed);
+    #1 at the eval prefills (B8 T256: llama3.2-1b D64 KH8, phi-2 D80
+    KH32, Mistral-7B D128 KH8 with its 4096 window)."""
+    import torch.nn.functional as F
+    from dla_tpu_torch.ops import _native
+    from dla_tpu_torch.ops import decode_kernel as dk
+    from dla_tpu_torch.ops import flash_attention as fa
+    from dla_tpu_torch.ops import quant_matmul as qm
+    b, kh, d, s, fill = EVAL_B, DIS_H, DIS_HD, EVAL_WIDTH + EVAL_NEW, \
+        EVAL_FILL
+    rows = {}
+    for int8 in (True, False):
+        sets = [_decode_inputs(torch, dev, g, fill=fill, b=b, s=s, kh=kh,
+                               g_rows=1, d=d, int8=int8) for _ in range(2)]
+        nbytes = (2 * b * fill * kh * d * (1 if int8 else 2)
+                  + (2 * b * kh * fill * 4 if int8 else 0)
+                  + b * kh * d * 2 * 2 + 2 * b * kh * d * 2 + b * fill * 4)
+        bms, by = bound_ms(nbytes, 4 * b * kh * (fill + 1) * d)
+        sets = sets * (_copies(nbytes) // 2 + 1)
+        t_k = _time_ms(torch, [lambda s=s: _call_decode(
+            dk.flash_decode_attention, s) for s in sets])
+        t_p = _time_ms(torch, [lambda s=s: _call_decode(
+            dk.flash_decode_attention_plain, s) for s in sets[:2]])
+        lib_sets = []
+        for x in sets[:2]:
+            sc = (lambda t: None if t is None else t[..., :fill])
+            kd = dk._dequant(x["k_cache"][:, :fill], sc(x["k_scale"]))
+            vd = dk._dequant(x["v_cache"][:, :fill], sc(x["v_scale"]))
+            kk = torch.cat([kd, x["k_new"].float()], 1).to(torch.bfloat16)
+            vv = torch.cat([vd, x["v_new"].float()], 1).to(torch.bfloat16)
+            mask = torch.cat([x["bias"][:, :fill], torch.zeros(
+                (b, 1), device=dev)], 1).to(torch.bfloat16)[:, None, None, :]
+            lib_sets.append((x["q"].transpose(1, 2).contiguous(),
+                             kk.transpose(1, 2).contiguous(),
+                             vv.transpose(1, 2).contiguous(), mask))
+        t_l = _time_ms(torch, [lambda x=x: F.scaled_dot_product_attention(
+            x[0], x[1], x[2], attn_mask=x[3]) for x in lib_sets * 4])
+        rows["int8" if int8 else "bf16"] = dict(
+            ms=t_k, plain_ms=t_p, bound_ms=bms, bound_by=by, library_ms=t_l,
+            unit=f"one launch: one phi-2 layer of an eval decode step (B8, "
+                 f"H = KH = 32, D80, {'int8' if int8 else 'bf16'} cache "
+                 f"S{s}, fill {fill})")
+        del sets, lib_sets
+    run.kernels["decode_attention_d80"] = dict(
+        name="decode_attention_d80", route="cuda",
+        source="dla_tpu_torch/csrc/decode_attn.cu",
+        replaces="dla_tpu/ops/decode_kernel.py:201", launches=None,
+        max_abs_err=run.report.get("parity_max_err", {}).get(
+            "decode_attention_d80"),
+        **rows["int8"], bf16_cache=rows["bf16"])
+    for key, r in rows.items():
+        print(f"   decode_attention D80 {key}: {r['ms']:.4f} ms vs bound "
+              f"{r['bound_ms']:.4f} ({r['bound_by']}), SDPA "
+              f"{r['library_ms']:.4f}, plain {r['plain_ms']:.4f}", flush=True)
+
+    per_shape, tot = [], dict(ms=0.0, plain_ms=0.0, library_ms=0.0,
+                              bound_ms=0.0)
+    for name, (k, n) in list(PHI_PROJ.items()) + [("lm_head",
+                                                   (2560, DIS_VOCAB))]:
+        m, count = EVAL_B, 1 if name == "lm_head" else DIS_LAYERS
+        nbytes = m * k * 2 + k * n + n * 4 + m * n * 2
+        sets = [_int8_inputs(torch, dev, g, m, k, n)
+                for _ in range(_copies(nbytes, most=4))]
+        t_k = _time_ms(torch, [lambda x=x: qm.int8_matmul(*x)
+                               for x in sets * 2])
+        t_p = _time_ms(torch, [lambda x=x: qm.int8_matmul_plain(*x)
+                               for x in sets[:1]], reps=3)
+        deq = [(x[0], (x[1].float() * x[2]).to(torch.bfloat16)) for x in sets]
+        t_l = _time_ms(torch, [lambda x=x: torch.matmul(*x) for x in deq * 2])
+        bms, by = bound_ms(nbytes, 2 * m * n * k)
+        p = qm.plan(m, n, k, _native.sm_count(dev))
+        per_shape.append(dict(proj=name, M=m, K=k, N=n, ms=t_k, plain_ms=t_p,
+                              library_ms=t_l, bound_ms=bms, bound_by=by,
+                              plan=p._asdict()))
+        for f, v in (("ms", t_k), ("plain_ms", t_p), ("library_ms", t_l),
+                     ("bound_ms", bms)):
+            tot[f] += v * count
+        print(f"   int8_matmul phi-2 {name:7s} M{m} K{k:5d} N{n:6d}: "
+              f"{t_k:.4f} ms (bound {bms:.4f} {by}, torch.matmul {t_l:.4f}, "
+              f"plain {t_p:.4f}; {p.path}, {p.tile_n} columns, {p.splits} "
+              "splits)", flush=True)
+        del sets, deq
+    run.kernels["int8_matmul"]["phi_decode_step"] = dict(
+        tot, bound_by="bytes" if all(r["bound_by"] == "bytes"
+                                     for r in per_shape) else "operations",
+        per_shape=per_shape,
+        max_abs_err=run.report.get("parity_max_err", {}).get(
+            "int8_matmul_phi"),
+        unit="one phi-2 decode step at M=8: 6 projections x 32 layers + "
+             "the lm_head (193 launches), each shape's median summed")
+    print(f"   int8_matmul phi-2 decode step: {tot}", flush=True)
+
+    mk = lambda *sh: torch.randn(sh, generator=g, device=dev).to(
+        torch.bfloat16)
+    prefill = {}
+    t = EVAL_WIDTH
+    for label, h, kvh, hd, window in (
+            ("llama3.2-1b (sft, dpo)", SFT_H, SFT_KH, SFT_HD, None),
+            ("phi-2 (distill)", DIS_H, DIS_H, DIS_HD, None),
+            ("Mistral-7B (base)", HEADS, KV_HEADS, HD, 4096)):
+        sets = [(mk(b, t, h, hd), mk(b, t, kvh, hd), mk(b, t, kvh, hd))
+                for _ in range(4)]
+        nbytes = 2 * (b * t * h * hd * 2 + b * t * kvh * hd * 2) \
+            + b * h * t * 4
+        bms, by = bound_ms(nbytes, 4 * hd * b * h * t * (t + 1) // 2)
+        t_k = _time_ms(torch, [lambda x=x: fa.flash_attention_forward(
+            *x, window=window) for x in sets * 4])
+        t_p = _time_ms(torch, [lambda x=x: fa.flash_forward_plain(
+            *x, window=window) for x in sets[:1]], reps=3)
+        lib = [tuple(y.transpose(1, 2).contiguous() for y in x) for x in sets]
+        t_l = _time_ms(torch, [lambda x=x: F.scaled_dot_product_attention(
+            *x, is_causal=True, enable_gqa=True) for x in lib * 4])
+        prefill[label] = dict(ms=t_k, plain_ms=t_p, library_ms=t_l,
+                              bound_ms=bms, bound_by=by,
+                              unit=f"one launch: one layer of an eval prefill, "
+                                   f"B8 T256 H{h} KH{kvh} D{hd}, causal"
+                                   + (f", window {window}" if window else ""))
+        print(f"   flash eval prefill {label}: {t_k:.4f} ms vs bound "
+              f"{bms:.4f} ({by}), SDPA {t_l:.4f}, plain {t_p:.4f}",
+              flush=True)
+        del sets, lib
+    run.kernels["flash_attention_fwd"]["eval_prefill"] = prefill
+    run.report["timing_eval"] = dict(
+        decode_attention_d80=rows,
+        int8_matmul_phi_decode_step=run.kernels["int8_matmul"][
+            "phi_decode_step"], flash_eval_prefill=prefill)
+    torch.cuda.empty_cache()
+
+
 def _top_kernel(torch, fn) -> str:
     """The CUDA kernel that took the most device time in one call of
     ``fn`` (which SDPA backend served it), from torch.profiler."""
@@ -1574,7 +1818,6 @@ def slice_run(run, torch, dev, native):
     import numpy as np
     from dla_tpu_torch.generation.engine import (GenerationConfig,
                                                  build_generate_fn)
-    from dla_tpu_torch.models.transformer import Transformer
     from dla_tpu_torch.training.model_io import load_causal_lm
 
     t0 = time.perf_counter()
@@ -1700,8 +1943,33 @@ def slice_run(run, torch, dev, native):
     print("   slice " + json.dumps(slice_rep), flush=True)
     del out2, e_toks, e_lps
 
-    # reference: same weights at 4 layers, kernels vs plain versions, and
-    # the plain versions with fp32 activations (the bf16 noise floor)
+    ref = _logits_vs_plain(torch, cfg, params, ids, mask)
+    k_vs_p = ref["kernels_vs_plain"]
+    print(f"   4-layer logits, kernels vs plain: {k_vs_p}; argmax agreement "
+          f"{ref['argmax_agreement']:.4f}", flush=True)
+    print(f"   4-layer logits, plain bf16 vs plain fp32 activations (noise "
+          f"floor): {ref['plain_bf16_vs_fp32']}", flush=True)
+    run.report["slice"]["ref_logits"] = ref
+    # bf16 keeps 8 bits; ~10 bf16-rounded stages per layer over 4 layers
+    # leave logits a few percent of their range apart between any two
+    # equally valid rounding orders: max within 5% of max|ref|, rms
+    # within 2% of rms(ref)
+    run.check(k_vs_p["max_err"] <= 0.05 * k_vs_p["max_ref"]
+              and k_vs_p["rms_err"] <= 0.02 * k_vs_p["rms_ref"],
+              "4-layer prefill + 4 decode-step logits match the plain "
+              "versions (max |err| <= 5% of max|logit|, rms <= 2% of rms)")
+    profile_decode(run, torch, model, params, ids, mask, gen,
+                   slice_rep["decode_ms_per_step_eager"], trace,
+                   slice_rep["decode_ms_per_step"])
+
+
+def _logits_vs_plain(torch, cfg, params, ids, mask):
+    """The logits of a prefill and 4 greedy decode steps at 4 layers of
+    ``params``: the model on its kernels against the same model on the
+    plain versions (the tokens the kernel run chose fed to both), and
+    the plain versions in bf16 against fp32 activations (the bf16 noise
+    floor)."""
+    from dla_tpu_torch.models.transformer import Transformer
     depth = min(4, cfg.num_layers)
     cfg4 = dataclasses.replace(cfg, num_layers=depth)
     p4 = {**params,
@@ -1733,28 +2001,10 @@ def slice_run(run, torch, dev, native):
                     max_ref=refv.abs().max().item(),
                     rms_ref=refv.pow(2).mean().sqrt().item())
 
-    k_vs_p = stats(got, ref)
-    floor = stats(ref, ref32)
     agree = sum((a.argmax(-1) == b.argmax(-1)).float().mean().item()
                 for a, b in zip(got, ref)) / len(got)
-    print(f"   4-layer logits, kernels vs plain: {k_vs_p}; argmax agreement "
-          f"{agree:.4f}", flush=True)
-    print(f"   4-layer logits, plain bf16 vs plain fp32 activations (noise "
-          f"floor): {floor}", flush=True)
-    run.report["slice"]["ref_logits"] = dict(
-        kernels_vs_plain=k_vs_p, plain_bf16_vs_fp32=floor,
-        argmax_agreement=agree)
-    # bf16 keeps 8 bits; ~10 bf16-rounded stages per layer over 4 layers
-    # leave logits a few percent of their range apart between any two
-    # equally valid rounding orders: max within 5% of max|ref|, rms
-    # within 2% of rms(ref)
-    run.check(k_vs_p["max_err"] <= 0.05 * k_vs_p["max_ref"]
-              and k_vs_p["rms_err"] <= 0.02 * k_vs_p["rms_ref"],
-              "4-layer prefill + 4 decode-step logits match the plain "
-              "versions (max |err| <= 5% of max|logit|, rms <= 2% of rms)")
-    profile_decode(run, torch, model, params, ids, mask, gen,
-                   slice_rep["decode_ms_per_step_eager"], trace,
-                   slice_rep["decode_ms_per_step"])
+    return dict(kernels_vs_plain=stats(got, ref),
+                plain_bf16_vs_fp32=stats(ref, ref32), argmax_agreement=agree)
 
 
 def _key(n: int):
@@ -2895,9 +3145,8 @@ def rlhf_run(run, torch, dev, native):
         _run_parts(run, [(f"{algo} CLI", lambda algo=algo: rlhf_cli(
             run, torch, dev, native, algo, work, rep))
             for algo in ("reinforce", "ppo", "gae")])
-    finally:
+    finally:     # the SFT final stays for the eval phase
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(SFT_WORK, ignore_errors=True)
         rep["peak_disk_gb"] = DISK.peak_gb
         print(f"   peak disk use under build/ so far: {DISK.peak_gb:.1f} GB",
               flush=True)
@@ -2916,10 +3165,7 @@ def rlhf_cli(run, torch, dev, native, algo: str, work: Path, rep):
     native.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    # the last run reads the SFT checkpoint last: policy and reference
-    with (_delete_once_read(train_rlhf, "load_causal_lm", SFT_WORK / "ckpt",
-                            2) if algo == "gae" else contextlib.nullcontext()):
-        trainer = train_rlhf.main(_rlhf_argv(algo, work), device="cuda")
+    trainer = train_rlhf.main(_rlhf_argv(algo, work), device="cuda")
     torch.cuda.synchronize()
     t_cli = time.perf_counter() - t0
     counts = native.launch_counts()
@@ -3164,6 +3410,8 @@ def distill_run(run, torch, dev, native):
         rep["disk_free_gb_at_start"] = free
         shutil.rmtree(work, ignore_errors=True)
         work.mkdir(parents=True)
+        shutil.rmtree(EVAL_WORK, ignore_errors=True)
+        EVAL_WORK.mkdir(parents=True)
         write_jsonl(work / "prompts.jsonl",
                     _distill_prompts(DIS_PROMPTS, SEED))
         disk.sample("start")
@@ -3176,9 +3424,8 @@ def distill_run(run, torch, dev, native):
                                            work, rep, disk)),
             ("2-layer checks", lambda: distill_checks_2_layers(
                 run, torch, dev, work, rep))])
-    finally:
+    finally:     # the DPO final and the KL final stay for the eval phase
         shutil.rmtree(work, ignore_errors=True)
-        shutil.rmtree(PREF_WORK, ignore_errors=True)
         rep["peak_disk_gb"] = disk.peak_gb
         print(f"   peak disk use under build/: {disk.peak_gb:.1f} GB",
               flush=True)
@@ -3204,8 +3451,11 @@ def distill_rollouts(run, torch, dev, native, work, finals, rep, disk):
     generate_teacher_data.main(argv, device="cuda")
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
-    shutil.rmtree(PREF_WORK, ignore_errors=True)     # read: not needed now
-    disk.sample("rollouts written, preference checkpoints deleted")
+    # the reward final is read: not needed now; the DPO final stays for
+    # the eval phase, and the rollouts for its report's samples
+    shutil.rmtree(PREF_WORK / "reward", ignore_errors=True)
+    shutil.copy(out, EVAL_WORK / "teacher_rollouts.jsonl")
+    disk.sample("rollouts written, reward checkpoint deleted")
     counts = native.launch_counts()
     batches = -(-DIS_PROMPTS // DIS_GEN_BATCH)
     want = {"flash_attention_fwd": 2 * SFT_LAYERS * batches,
@@ -3305,9 +3555,13 @@ def distill_cli(run, torch, dev, native, mode: str, work: Path, rep, disk):
               f"distill {mode}: final/ loads back (load_causal_lm) equal "
               "to the trained parameters")
     t_load = time.perf_counter() - t1
-    if mode == "kl":       # read back: nothing reads it again
+    if mode == "kl":       # read back: the eval phase reads its parameters
+        _params_only(final)
+        final.rename(EVAL_WORK / "distill_final")
         shutil.rmtree(work / "kl" / "ckpt", ignore_errors=True)
-        disk.sample("KL checkpoint deleted")
+        shutil.copy(work / "kl" / "logs" / "metrics.jsonl",
+                    EVAL_WORK / "distill_kl_metrics.jsonl")
+        disk.sample("KL final kept, parameters only, for the eval phase")
 
     t_steps = time.perf_counter()
     batch = _distill_batches(work, 1)[0]
@@ -3523,6 +3777,394 @@ def _distill_overfit(run, torch, dev, work, batch, checks):
     run.check(ld[-1] < ld[0] - 0.5, f"distill CE loss falls on a repeated "
               f"batch ({ld[0]:.4f} -> {ld[-1]:.4f}, by more than 0.5)")
 
+
+
+# -------------------------------------------------------------------- eval
+
+def _eval_pairs(n: int, seed: int):
+    """{prompt, response} pairs of 32..250 and 16..250 bytes."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    return [{"prompt": "".join(rs.choice(_LETTERS, int(rs.randint(32, 251)))),
+             "response": "".join(rs.choice(_LETTERS,
+                                           int(rs.randint(16, 251))))}
+            for _ in range(n)]
+
+
+def _eval_config(work: Path, int8: bool) -> Path:
+    """config/eval_config.yaml with this run's models (the Mistral-7B
+    preset as ``base``; the chain's SFT, DPO and distill finals), its
+    local benchmarks (``safety_hh``, ``type: hf``, dropped) and cuts
+    (16 prompts a benchmark, 32 pairs; config: 512 / 256 and 512), the
+    byte tokenizer and flash on; generation as configured. The int8 pass
+    adds an int8 KV cache and keeps ``alignment_local`` alone."""
+    import yaml
+    cfg = yaml.safe_load(EVAL_CONFIG.read_text())
+    cfg["models"] = _eval_models(work)
+    bench = cfg["benchmarks"]
+    bench.pop("safety_hh")
+    data = work / "data"
+    bench["alignment_local"].update(
+        prompts_path=str(data / "eval_prompts.jsonl"),
+        max_samples=EVAL_PROMPTS)
+    bench["truthfulness"].update(prompts_path=str(data / "truthfulqa.jsonl"),
+                                 max_samples=EVAL_PROMPTS)
+    bench["heldout_ppl"].update(path=str(data / "eval_pairs.jsonl"),
+                                max_samples=EVAL_PAIRS)
+    cfg["model"] = {"tokenizer": "byte", "use_flash_attention": True}
+    out = work / ("eval_int8" if int8 else "eval")
+    if int8:
+        cfg["model"]["kv_cache_dtype"] = "int8"
+        cfg["benchmarks"] = {"alignment_local": bench["alignment_local"]}
+    cfg["logging"] = {"output_path": str(out / "results.json"),
+                      "table_path": str(out / "summary.md")}
+    gen = cfg["generation"]
+    assert (gen["max_new_tokens"], gen["batch_size"],
+            gen["max_prompt_length"]) == (EVAL_NEW, EVAL_B, EVAL_WIDTH)
+    path = work / f"{out.name}.yaml"
+    path.write_text(yaml.safe_dump(cfg, sort_keys=False))   # models in order
+    return path
+
+
+def _eval_launches(layers: int, gen_calls: int, ppl_batches: int,
+                   int8: bool):
+    """Wrapper launches of one model in an eval pass: per generate call
+    the prefill (#1 a layer) and the decode step's eager first run and
+    its capture (the draw; #4 a layer over an int8 cache); per
+    perplexity batch one forward (#1 a layer)."""
+    want = {"flash_attention_fwd": layers * (gen_calls + ppl_batches),
+            "categorical_draw": 2 * gen_calls}
+    if int8:
+        want["decode_attention"] = 2 * layers * gen_calls
+    return want
+
+
+@contextlib.contextmanager
+def _marks_per_load(module, native, marks):
+    """Within the block, each call of ``module.load_causal_lm`` (the eval
+    CLI loads each model once with it) first appends (name, the wrapper
+    launch counts so far, perf_counter) to ``marks``: the counts between
+    two marks are one model's."""
+    real = module.load_causal_lm
+
+    def loader(name, *args, **kwargs):
+        marks.append((str(name), native.launch_counts(), time.perf_counter()))
+        return real(name, *args, **kwargs)
+    module.load_causal_lm = loader
+    try:
+        yield
+    finally:
+        module.load_causal_lm = real
+
+
+def eval_run(run, torch, dev, native):
+    import gc
+    import shutil
+    from dla_tpu_torch.data.jsonl import write_jsonl
+    work = EVAL_WORK
+    rep = {}
+    run.report["eval"] = rep
+    try:
+        gc.collect()
+        torch.cuda.empty_cache()
+        finals = {"sft": SFT_WORK / "ckpt" / "final",
+                  "dpo": PREF_WORK / "dpo" / "ckpt" / "final",
+                  "distill": work / "distill_final"}
+        run.check(all((f / "index.json").is_file() for f in finals.values()),
+                  "the SFT, DPO and distill finals are there to evaluate")
+        data = work / "data"
+        data.mkdir(parents=True, exist_ok=True)
+        write_jsonl(data / "eval_prompts.jsonl",
+                    _distill_prompts(EVAL_PROMPTS, SEED + 3))
+        write_jsonl(data / "truthfulqa.jsonl",
+                    [{"question": r["prompt"]} for r in
+                     _distill_prompts(EVAL_PROMPTS, SEED + 4)])
+        write_jsonl(data / "eval_pairs.jsonl", _eval_pairs(EVAL_PAIRS,
+                                                           SEED + 5))
+        DISK.sample("eval start")
+        _run_parts(run, [
+            ("eval CLI", lambda: eval_cli(run, torch, native, work, rep,
+                                          int8=False)),
+            ("eval CLI, int8 KV cache", lambda: eval_cli(
+                run, torch, native, work, rep, int8=True)),
+            ("int8 phi generate", lambda: eval_phi_int8(
+                run, torch, dev, native, finals["distill"], rep)),
+            ("package_report", lambda: eval_report(run, work, rep)),
+            ("HF export round trip", lambda: eval_export(
+                run, torch, finals["sft"], work, rep))])
+        limit_gb = 45 * 2**30 / 1e9
+        run.check(DISK.peak_gb < limit_gb, f"peak disk under build/ "
+                  f"{DISK.peak_gb:.1f} GB < 45 GiB ({limit_gb:.1f} GB)")
+    finally:
+        for d in (SFT_WORK, PREF_WORK, work):
+            shutil.rmtree(d, ignore_errors=True)
+        rep["peak_disk_gb"] = DISK.peak_gb
+        print(f"   peak disk use under build/: {DISK.peak_gb:.1f} GB",
+              flush=True)
+
+
+def eval_cli(run, torch, native, work: Path, rep, int8: bool):
+    """One pass of the eval CLI over the four models; each model's
+    wrapper launches equal its path's, every model x benchmark has its
+    metrics, rates lie in [0, 1], average lengths are >= 0, perplexities
+    finite over > 0 tokens."""
+    from dla_tpu_torch.eval import eval_alignment
+    key = "int8" if int8 else "bf16"
+    path = _eval_config(work, int8)
+    marks = []
+    native.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with _marks_per_load(eval_alignment, native, marks):
+        results = eval_alignment.main(["--config", str(path)], device="cuda")
+    torch.cuda.synchronize()
+    t_cli = time.perf_counter() - t0
+    marks.append(("end", native.launch_counts(), time.perf_counter()))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    layers = {"base": EVAL_BASE_LAYERS, "sft": SFT_LAYERS, "dpo": SFT_LAYERS,
+              "distill": DIS_LAYERS}
+    benches = ["alignment_local"] if int8 else [
+        "alignment_local", "heldout_ppl", "truthfulness"]
+    calls = -(-EVAL_PROMPTS // EVAL_B) * (len(benches) - (0 if int8 else 1))
+    batches = 0 if int8 else -(-EVAL_PAIRS // EVAL_B)
+    run.check([m[0] for m in marks[:-1]] == list(
+        _eval_models(work).values()), "the eval CLI loaded each model once")
+    per_model, total = {}, {}
+    for model, (_, a, t_a), (_, b, t_b) in zip(layers, marks, marks[1:]):
+        got = {k: b.get(k, 0) - a.get(k, 0) for k in b
+               if b.get(k, 0) != a.get(k, 0)}
+        want = _eval_launches(layers[model], calls, batches, int8)
+        per_model[model] = dict(seconds=t_b - t_a, launches=got,
+                                expected=want)
+        for k, v in want.items():
+            total[k] = total.get(k, 0) + v
+    print(f"   eval ({key} KV cache): CLI {t_cli:.1f} s, peak "
+          f"{peak:.2f} GiB; per model {json.dumps(per_model)}", flush=True)
+    run.check(list(per_model) == list(layers) and all(
+        v["launches"] == v["expected"] for v in per_model.values())
+        and native.launch_counts() == total,
+        f"eval ({key} KV cache): each model's wrapper launches equal its "
+        f"path's (total {native.launch_counts()}, expected {total})")
+    ok = list(results) == list(layers) and all(
+        list(results[m]) == benches for m in results)
+    for m in results.values():
+        for s in m.values():
+            if "perplexity" in s:
+                ok = ok and math.isfinite(s["perplexity"]) and \
+                    math.isfinite(s["nll"]) and s["n_tokens"] > 0
+            else:
+                ok = ok and s["avg_length"] >= 0 and all(
+                    0.0 <= s[r] <= 1.0 for r in ("refusal_rate",
+                                                 "toxicity_proxy"))
+    print(f"   eval ({key} KV cache) results {json.dumps(results)}",
+          flush=True)
+    run.check(ok and (work / f"eval{'_int8' if int8 else ''}" /
+                      "summary.md").is_file(),
+              f"eval ({key} KV cache): every model x benchmark in "
+              "results.json, rates in [0, 1], lengths >= 0, perplexities "
+              "finite over > 0 tokens; summary.md written")
+    rep[f"cli_{key}"] = dict(cli_s=t_cli, peak_mem_gib=peak,
+                             per_model=per_model, results=results)
+    for name, n in total.items():
+        run.kernels.setdefault(name, {})[f"launches_eval_{key}"] = n
+    if int8:
+        run.kernels.setdefault("decode_attention_d80", {})[
+            "launches_eval_int8"] = per_model["distill"]["launches"].get(
+            "decode_attention", 0)
+
+
+def _eval_models(work: Path):
+    """{model name: the path the eval config gives it}."""
+    return {"base": EVAL_BASE, "sft": str(SFT_WORK / "ckpt" / "final"),
+            "dpo": str(PREF_WORK / "dpo" / "ckpt" / "final"),
+            "distill": str(work / "distill_final")}
+
+
+def eval_phi_int8(run, torch, dev, native, final: Path, rep):
+    """The distill final as an int8 weight tree over an int8 KV cache
+    through the graphed generate (8 prompts of width 256, 256 new tokens
+    at temperature 0.7 / top_p 0.9, no EOS): #1, #4 at D80, #5 at phi-2's
+    shapes (the biased lm_head included) and the draw. The first
+    generate is traced: the wrappers' launches (prefill, eager first
+    step, capture) and the card's, replays included, equal the path's;
+    a second is timed and held equal (tokens, logps) to an eager loop
+    from the same key; the 4-layer logits match the plain versions."""
+    from torch.profiler import ProfilerActivity, profile
+    from dla_tpu_torch.data.tokenizers import ByteTokenizer
+    from dla_tpu_torch.generation.engine import (GenerationConfig,
+                                                 build_generate_fn,
+                                                 encode_prompt_batch)
+    from dla_tpu_torch.training.model_io import load_causal_lm
+    t0 = time.perf_counter()
+    bundle = load_causal_lm(str(final), {
+        "tokenizer": "byte", "use_flash_attention": True,
+        "kv_cache_dtype": "int8"}, device=dev)
+    model, cfg = bundle.model, bundle.config
+    run.check((cfg.arch, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+               cfg.head_dim_, cfg.vocab_size) == (
+        "phi", DIS_H * DIS_HD, DIS_LAYERS, DIS_H, DIS_HD, DIS_VOCAB),
+        "the distill final is phi-2 at full width and depth")
+    params = model.activation_weights(model.quantize_weights(bundle.params))
+    del bundle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    t_load = time.perf_counter() - t0
+    prompts = [r["prompt"] for r in _distill_prompts(EVAL_B, SEED + 3)]
+    ids, mask = encode_prompt_batch(ByteTokenizer(), prompts, EVAL_WIDTH)
+    ids, mask = torch.from_numpy(ids).to(dev), torch.from_numpy(mask).to(dev)
+    gen = GenerationConfig(max_new_tokens=EVAL_NEW, temperature=TEMPERATURE,
+                           top_p=TOP_P, do_sample=True, eos_token_id=-1,
+                           pad_token_id=0)
+    generate = build_generate_fn(model, gen)
+    L, mats = DIS_LAYERS, 6 * DIS_LAYERS + 1     # 6 projections + lm_head
+    per_step = {"flash_attention_fwd": 0, "decode_attention": L,
+                "int8_matmul": mats, "categorical_draw": 1}
+    prefill = {"flash_attention_fwd": L, "decode_attention": 0,
+               "int8_matmul": mats, "categorical_draw": 0}
+    native.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # a late profiling session of the process lost its first
+        # kernels' records (layer 0 of the prefill) in a run of this
+        # phase: let the card's tracing start before the path does
+        torch.cuda._sleep(10_000_000)
+        torch.cuda.synchronize()
+        out = generate(params, ids, mask, _key(SEED + 11))
+        torch.cuda.synchronize()
+    t_traced = time.perf_counter() - t0
+    wrapped = native.launch_counts()
+    trace = _trace_kernels(torch, prof)
+    del prof
+    want_wrapped = {k: prefill[k] + 2 * v for k, v in per_step.items()}
+    want = {k: prefill[k] + EVAL_NEW * v for k, v in per_step.items()}
+
+    def by_kernel(launches):
+        return {k: sum(n for name, n in launches.items()
+                       if any(sym in name for sym in KERNEL_SYMBOLS[k]))
+                for k in want}
+    traced, replayed = by_kernel(trace["launches"]), by_kernel(
+        trace["replay_launches"])
+    # the card's launches: the eager ones (prefill and first step, as the
+    # wrappers counted them; the capture runs nothing) and the replays'
+    counts = {k: wrapped.get(k, 0) - per_step[k] + replayed[k] for k in want}
+    print(f"   int8 phi generate: wrapper launches {wrapped}, expected "
+          f"{want_wrapped}; in {trace['replays']} graph replays "
+          f"{replayed}; card launches {counts}, expected {want} (the whole "
+          f"trace's records: {traced})", flush=True)
+    run.check(wrapped == want_wrapped and trace["replays"] == EVAL_NEW - 1
+              and replayed == {k: (EVAL_NEW - 1) * v
+                               for k, v in per_step.items()},
+              "int8 phi generate: each wrapper issued the prefill's, the "
+              "first step's and the capture's launches, and the graph "
+              "replayed the step 255 times with its launches")
+    toks, lps = out["response_tokens"], out["response_logps"]
+    run.check(tuple(toks.shape) == (EVAL_B, EVAL_NEW) and bool(
+        ((toks >= 0) & (toks < DIS_VOCAB)).all()) and bool(
+        torch.isfinite(lps).all()) and bool((lps <= 0).all()),
+        "int8 phi generate: token ids in vocab, logps finite and <= 0")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = model.start_decode(params, ids, mask, EVAL_NEW)
+    torch.cuda.synchronize()
+    t_pre = time.perf_counter() - t0
+    del logits, cache
+    t0 = time.perf_counter()
+    out2 = generate(params, ids, mask, _key(SEED + 12))
+    torch.cuda.synchronize()
+    t_gen = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    e_toks, e_lps = _eager_decode(torch, model, params, ids, mask, gen,
+                                  _key(SEED + 12), new=EVAL_NEW)
+    torch.cuda.synchronize()
+    t_eager = time.perf_counter() - t0
+    run.check(torch.equal(out2["response_tokens"], e_toks) and torch.equal(
+        out2["response_logps"], e_lps), "int8 phi: the graphed generate's "
+        "tokens and logps equal an eager build_decode_step loop's from the "
+        "same key")
+    ref = _logits_vs_plain(torch, cfg, params, ids, mask)
+    print(f"   int8 phi 4-layer logits, kernels vs plain: "
+          f"{ref['kernels_vs_plain']}; plain bf16 vs fp32 (noise floor): "
+          f"{ref['plain_bf16_vs_fp32']}", flush=True)
+    k_vs_p = ref["kernels_vs_plain"]
+    run.check(k_vs_p["max_err"] <= 0.05 * k_vs_p["max_ref"]
+              and k_vs_p["rms_err"] <= 0.02 * k_vs_p["rms_ref"],
+              "int8 phi: 4-layer prefill + 4 decode-step logits match the "
+              "plain versions (max |err| <= 5% of max|logit|, rms <= 2%)")
+    out = dict(load_quantize_s=t_load, generate_s_first_traced=t_traced,
+               prefill_ms=t_pre * 1e3, generate_s=t_gen,
+               eager_generate_s=t_eager,
+               decode_ms_per_step=(t_gen - t_pre) / EVAL_NEW * 1e3,
+               decode_ms_per_step_eager=(t_eager - t_pre) / EVAL_NEW * 1e3,
+               tokens_per_s=EVAL_B * EVAL_NEW / t_gen,
+               wrapper_launches=wrapped, launches=counts,
+               trace_records=traced, ref_logits=ref,
+               graph_replay_device_ms_per_step=sum(
+                   trace["replay_ns"].values()) / 1e6 / max(
+                   trace["replays"], 1))
+    rep["int8_phi_generate"] = out
+    print("   int8 phi generate " + json.dumps(out), flush=True)
+    d80 = run.kernels.setdefault("decode_attention_d80", {})
+    d80["launches"] = counts["decode_attention"]
+    d80["wrapper_launches"] = wrapped.get("decode_attention", 0)
+    for name in ("flash_attention_fwd", "int8_matmul", "categorical_draw"):
+        run.kernels.setdefault(name, {})["launches_eval_int8_phi"] = \
+            counts[name]
+    del params, out2, e_toks, e_lps
+    torch.cuda.empty_cache()
+
+
+def eval_report(run, work: Path, rep):
+    """package_report over the distill KL run's metrics, the eval's
+    directory and the teacher rollouts."""
+    from dla_tpu_torch.eval import package_report
+    out = work / "report"
+    report = package_report.main([
+        "--metrics", str(work / "distill_kl_metrics.jsonl"),
+        "--eval-dir", str(work / "eval"),
+        "--samples", str(work / "teacher_rollouts.jsonl"),
+        "--output", str(out), "--title", "chip_smoke pipeline"])
+    text = report.read_text() if report.is_file() else ""
+    pngs = sorted(p.name for p in out.glob("*.png"))
+    undrawn = [ln for ln in text.splitlines() if "not drawn:" in ln]
+    print(f"   report.md {len(text)} bytes, curves {pngs}, {undrawn}",
+          flush=True)
+    rep["report"] = dict(bytes=len(text), curves=pngs, not_drawn=undrawn)
+    run.check(all(h in text for h in ("## Final metrics", "## Alignment eval",
+                                      "## Eval summary", "## Samples"))
+              and (out / "samples.md").is_file() and (pngs or undrawn),
+              "report.md present with the metrics, the eval, its summary "
+              "and the samples; its curves drawn or named")
+
+
+def eval_export(run, torch, final: Path, work: Path, rep):
+    """hf_export of the SFT final to fp32 safetensors, read back through
+    ``load_causal_lm`` (the HF directory route): parameters equal."""
+    import shutil
+    from dla_tpu_torch.models import hf_export
+    from dla_tpu_torch.training.model_io import load_causal_lm
+    t0 = time.perf_counter()
+    out = hf_export.export_checkpoint(final, work / "sft_hf")
+    t_export = time.perf_counter() - t0
+    gb = sum(f.stat().st_size for f in out.iterdir()) / 1e9
+    DISK.sample("SFT final exported to an HF directory")
+    t0 = time.perf_counter()
+    back = load_causal_lm(str(out), {"tokenizer": "byte"}, device="cpu")
+    t_import = time.perf_counter() - t0
+    orig = load_causal_lm(str(final), {"tokenizer": "byte"}, device="cpu")
+    same_cfg = all(getattr(back.config, f) == getattr(orig.config, f) for f in (
+        "vocab_size", "hidden_size", "num_layers", "num_kv_heads",
+        "tie_embeddings", "rope_theta", "rope_scaling"))
+    ok = _params_equal(torch, back.params, orig.params)
+    rep["hf_export"] = dict(export_s=t_export, import_s=t_import, gb=gb)
+    print(f"   HF export {t_export:.1f} s ({gb:.2f} GB), import "
+          f"{t_import:.1f} s", flush=True)
+    del back, orig
+    shutil.rmtree(out, ignore_errors=True)
+    run.check(ok and same_cfg, "the SFT final exported to HF safetensors "
+              "imports back with equal parameters and architecture")
 
 if __name__ == "__main__":
     sys.exit(main())

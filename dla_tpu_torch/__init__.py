@@ -9,8 +9,11 @@ on CPU tensors every kernel wrapper computes its plain version.
 
 Ported so far: rollout generation (contiguous-KV
 ``generation.engine.build_generate_fn``, sampling ``jax.random``'s
-tokens through ``ops.prng``), SFT, the reward model, DPO, PPO-RLHF and
-distillation, with kernels for flash attention (forward and backward),
-decode attention, the int8 weight-only matmul and the categorical draw.
-ROADMAP.md lists what follows.
+tokens through ``ops.prng``; llama and phi blocks), SFT, the reward
+model, DPO, PPO-RLHF, distillation, the alignment eval and the report
+(``eval``), and local HF weight directories in and out
+(``models.hf_import``, ``models.hf_export``), with kernels for flash
+attention (forward and backward), decode attention, the int8
+weight-only matmul and the categorical draw. ROADMAP.md lists what
+follows.
 """

@@ -49,8 +49,9 @@ constexpr int PLD = 24;    // bf16 row pitch of a warp's P^T buffer
 template <int D, bool INT8>
 struct Cfg {
   static constexpr int ROW = INT8 ? D : 2 * D;  // bytes of a cache row
-  static constexpr int LD = ROW + 16;           // smem pitch: 16-byte chunks
-                                                // odd, so rows spread banks
+  // smem pitch: the least odd number of 16-byte chunks past the row (D = 80
+  // int8: 5 chunks of data, pitch 7), so 8 rows spread over the banks
+  static constexpr int LD = 16 * ((ROW / 16 + 1) | 1);
   static constexpr int STAGE = 2 * SL * LD + 3 * SL * 4;  // K, V, ks, vs, bias
   static constexpr int RING = WARPS * 2 * STAGE;
   static constexpr int PART = WARPS * (2 * GMAX + D * GMAX) * 4;
@@ -275,7 +276,7 @@ decode_attn_kernel(const Args a) {
       const float sv0 = vsc[2 * tig], sv1 = vsc[2 * tig + 1];
       const float sv8 = vsc[2 * tig + 8], sv9 = vsc[2 * tig + 9];
 #pragma unroll
-      for (int t = 0; t < D / 16; t += 2) {
+      for (int t = 0; t + 1 < KS; t += 2) {
         uint32_t r[4], f0[4], f1[4];
         hp::ldsm_x4_trans(r, hp::smem_addr(vt + (i8 + 8 * (j & 1)) * C::LD +
                                            16 * (t + (j >> 1))));
@@ -285,6 +286,14 @@ decode_attn_kernel(const Args a) {
         dequant_cpairs(r[3], sv8, sv9, f1[2], f1[3]);
         dla::mma_16816(acc[t], f0, pb0, pb1);
         dla::mma_16816(acc[t + 1], f1, pb0, pb1);
+      }
+      if constexpr (KS % 2) {  // D = 80: the last d chunk alone, one x2 load
+        uint32_t r[2], f0[4];
+        hp::ldsm_x2_trans(r, hp::smem_addr(vt + (i8 + 8 * (j & 1)) * C::LD +
+                                           16 * (KS - 1)));
+        dequant_cpairs(r[0], sv0, sv1, f0[0], f0[1]);
+        dequant_cpairs(r[1], sv8, sv9, f0[2], f0[3]);
+        dla::mma_16816(acc[KS - 1], f0, pb0, pb1);
       }
     } else {
       // one x4 load per 16 d: matrices (columns 0-7 | 8-15) x (d 0-7 |
@@ -413,6 +422,7 @@ template <bool INT8>
 int dispatch(int D, const Args& a, int pairs, int split, cudaStream_t st) {
   switch (D) {
     case 64: return launch<64, INT8>(a, pairs, split, st);
+    case 80: return launch<80, INT8>(a, pairs, split, st);
     case 96: return launch<96, INT8>(a, pairs, split, st);
     case 128: return launch<128, INT8>(a, pairs, split, st);
     case 256: return launch<256, INT8>(a, pairs, split, st);
@@ -457,6 +467,7 @@ extern "C" int dla_decode_attention(
 extern "C" int dla_decode_attention_smem_bytes(int D, int cache_int8) {
   switch (D) {
     case 64: return cache_int8 ? Cfg<64, true>::SMEM : Cfg<64, false>::SMEM;
+    case 80: return cache_int8 ? Cfg<80, true>::SMEM : Cfg<80, false>::SMEM;
     case 96: return cache_int8 ? Cfg<96, true>::SMEM : Cfg<96, false>::SMEM;
     case 128:
       return cache_int8 ? Cfg<128, true>::SMEM : Cfg<128, false>::SMEM;

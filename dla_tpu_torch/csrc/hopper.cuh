@@ -197,6 +197,15 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
       : "r"(addr));
 }
 
+// two such matrices: lanes 0 .. 15 give the row addresses (r[j] as above)
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2],
+                                              uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+      : "=r"(r[0]), "=r"(r[1])
+      : "r"(addr));
+}
+
 // ---------------------------------------------------------------- wgmma
 
 // 128-byte-swizzle shared-memory matrix descriptor (byte offsets)

@@ -1,6 +1,6 @@
 """Tokenized instruction, preference and teacher-rollout examples with the
-reference's text contract and fixed batch shapes (``dla_tpu.data.datasets``,
-the SFT, preference and distillation parts).
+reference's text contract and fixed batch shapes, and the evaluation's
+plain prompt records (``dla_tpu.data.datasets``).
 
 - template ``"{prompt}\\n\\n{response}{eos}"``; the tokens of
   ``"{prompt}\\n\\n"`` get label -100 when ``mask_prompt``
@@ -137,3 +137,16 @@ class TeacherRolloutDataset(_RecordDataset):
         ex["labels"] = ex["input_ids"].copy()
         ex["reward"] = np.asarray(float(rec.get("reward", 1.0)), np.float32)
         return ex
+
+
+class EvalPromptDataset:
+    """Plain prompt records for evaluation, untokenized."""
+
+    def __init__(self, path: str):
+        self.records = read_jsonl(path)
+
+    def __len__(self) -> int:
+        return len(self.records)
+
+    def __getitem__(self, idx: int) -> Dict[str, Any]:
+        return self.records[idx]

@@ -3,9 +3,10 @@
 ``ByteTokenizer`` is the dependency-free byte-level tokenizer the tests,
 smoke runs and committed checkpoints use: UTF-8 bytes shifted by 3, ids
 0/1/2 = pad/bos/eos — identical ids to ``dla_tpu.data.tokenizers``, so
-prompts encode the same in both packages. The HF tokenizer adapter waits
-for a later slice of the port; ``load_tokenizer`` raises for any name
-other than the byte tokenizer's.
+prompts encode the same in both packages. HF tokenizer directories wait
+for a ``tokenizer.json`` reader of the port's own (the GPU machine has
+no ``tokenizers`` package; ROADMAP.md §1, item 1): ``load_tokenizer``
+raises for any name other than the byte tokenizer's.
 """
 from __future__ import annotations
 
@@ -55,5 +56,5 @@ def load_tokenizer(name_or_path: str) -> Tokenizer:
         return ByteTokenizer()
     raise NotImplementedError(
         f"tokenizer '{name_or_path}': only the byte tokenizer is ported; "
-        "HF tokenizers arrive with the HF-import slice (pass "
+        "HF tokenizer directories are ROADMAP.md §1, item 1 (pass "
         "tokenizer='byte')")

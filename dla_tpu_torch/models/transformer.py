@@ -19,16 +19,18 @@ through the int8 matmul kernel, and every decode step's attention
 through the decode-attention kernel (int8 cache under
 ``decode_kernel="auto"``, any cache under ``"on"``). The TPU-only gates
 are gone: flash needs no 128-multiple length (the kernel masks ragged
-tails) and the decode kernel has no head_dim % 128 or 8-row group limit.
-There is no mesh: sharding constraints and shard_map wrappers have no
-counterpart here.
+tails) and the decode kernel has no head_dim % 128 or 8-row group limit
+(phi-2's head dim 80 has its own instance). There is no mesh: sharding
+constraints and shard_map wrappers have no counterpart here.
 
-The phi block (phi-2: one shared LayerNorm feeding attention and the
-MLP, biased projections, partial rotary, a GELU(tanh) fc1/fc2 MLP, the
-parallel residual ``x + attn + mlp``, a biased final LayerNorm and an
-untied, biased ``lm_head``) runs the training forward only:
-``init_cache``, ``prefill``, ``prefill_external`` and ``decode_step``
-raise for it until phi generation is ported (ROADMAP.md).
+Two blocks: llama, and phi (phi-2: one shared LayerNorm feeding
+attention and the MLP, biased projections, partial rotary, a
+GELU(tanh) fc1/fc2 MLP, the parallel residual ``x + attn + mlp``, a
+biased final LayerNorm and an untied, biased ``lm_head``). Both run
+every entry point: training forward, prefill and decode, over a bf16 or
+int8 cache and a full-precision or int8 weight tree. The per-layer
+decode computation is one function for both (``_decode_layer``), as in
+the JAX package, so a later block variant lands in one place.
 
 Not ported yet (``__init__`` or ``hidden_states`` raises, naming the
 ROADMAP item): the gemma / gemma2 block variants, alternating-layer
@@ -100,7 +102,7 @@ class Transformer(nn.Module):
     (``prefill_external``)."""
 
     _WEIGHT_ONLY_MATS = ("wq", "wk", "wv", "wo", "w_gate", "w_up",
-                         "w_down")
+                         "w_down", "fc1", "fc2")
 
     def __init__(self, cfg: ModelConfig):
         super().__init__()
@@ -236,7 +238,7 @@ class Transformer(nn.Module):
         def cast(t: torch.Tensor) -> torch.Tensor:
             return t.to(self.adtype) if t.is_floating_point() else t
 
-        mats = self._WEIGHT_ONLY_MATS + ("fc1", "fc2")
+        mats = self._WEIGHT_ONLY_MATS
         layers = {k: (cast(v) if k in mats or (k.endswith("_bias") and
                                                 k[:-5] in mats) else v)
                   for k, v in params["layers"].items()}
@@ -386,8 +388,8 @@ class Transformer(nn.Module):
         cfg = self.cfg
         if cfg.remat not in ("none", "full"):
             raise NotImplementedError(
-                f"remat {cfg.remat!r} is not ported yet (ROADMAP.md §3, "
-                "training items); use 'full' or 'none'")
+                f"remat {cfg.remat!r} is not ported yet (ROADMAP.md §1, "
+                "item 2: training options); use 'full' or 'none'")
         if cfg.pipeline_stages > 1:
             raise NotImplementedError(
                 "pipeline parallelism is not ported yet (ROADMAP.md §1, "
@@ -469,14 +471,6 @@ class Transformer(nn.Module):
 
     # ------------------------------------------------------------- KV cache
 
-    def _check_generation(self, entry: str) -> None:
-        """The generation entry points run the llama block only."""
-        if self.cfg.arch == "phi":
-            raise NotImplementedError(
-                f"Transformer.{entry}: phi prefill and decode are not ported "
-                "yet (ROADMAP.md §2, phi prefill and decode); the phi block "
-                "runs the training forward (hidden_states / apply) only")
-
     @property
     def _kv_int8(self) -> bool:
         return self.cfg.kv_cache_dtype == "int8"
@@ -499,7 +493,6 @@ class Transformer(nn.Module):
         valid [B, S], lengths [B] (next position per row), the host int
         ``step`` (decode steps taken) and ``col``, the column the next
         decode step writes, as a 0-dim int32 tensor on the device."""
-        self._check_generation("init_cache")
         cfg = self.cfg
         shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
                  cfg.head_dim_)
@@ -530,7 +523,6 @@ class Transformer(nn.Module):
         logits [B, V], ks [L, B, T, KH, D], vs [L, B, T, KH, D]) in
         activation dtype. Prompts are right-padded; under flash no mask
         is built (pad keys sit above every real query's diagonal)."""
-        self._check_generation("prefill_external")
         cfg = self.cfg
         b, t = input_ids.shape
         dev = input_ids.device
@@ -562,7 +554,6 @@ class Transformer(nn.Module):
                 ) -> Tuple[torch.Tensor, Params]:
         """Run the prompt, writing columns [0, T) of a zero-filled cache
         in place. Returns (last-real-token logits [B, V], cache)."""
-        self._check_generation("prefill")
         t = input_ids.shape[1]
         logits, ks, vs = self.prefill_external(params, input_ids,
                                                attention_mask)
@@ -601,18 +592,31 @@ class Transformer(nn.Module):
 
     def _decode_layer(self, layer: Params, h_in: torch.Tensor, cos, sin,
                       attend):
-        """Per-layer decode computation; ``attend(q, k, v)`` supplies the
-        attention backend. Returns (output, (k, v))."""
+        """The per-layer decode computation of every block (norms,
+        biased or plain projections through ``_proj`` (int8 weights
+        through the int8 matmul, the bias added after it), partial or
+        full rotary, the MLP); ``attend(q, k, v)`` supplies the attention
+        backend. Returns (output, (k, v))."""
         cfg = self.cfg
         b, t, _ = h_in.shape
         dh = cfg.head_dim_
-        hn = rms_norm(h_in, layer["attn_norm"], cfg.rms_norm_eps)
+        phi = cfg.arch == "phi"
+        if phi:
+            hn = layer_norm(h_in, layer["ln"], layer["ln_bias"],
+                            cfg.rms_norm_eps)
+        else:
+            hn = rms_norm(h_in, layer["attn_norm"], cfg.rms_norm_eps)
         q = self._proj(layer, "wq", hn).reshape(b, t, cfg.num_heads, dh)
         k = self._proj(layer, "wk", hn).reshape(b, t, cfg.num_kv_heads, dh)
         v = self._proj(layer, "wv", hn).reshape(b, t, cfg.num_kv_heads, dh)
         q = apply_rotary(q, cos, sin, rotary_dim=cfg.rotary_dim_)
         k = apply_rotary(k, cos, sin, rotary_dim=cfg.rotary_dim_)
         attn = attend(q, k, v).reshape(b, t, cfg.num_heads * dh)
+        if phi:   # parallel residual: attention and MLP both read hn
+            ff = torch.nn.functional.gelu(self._proj(layer, "fc1", hn),
+                                          approximate="tanh")
+            return (h_in + self._proj(layer, "wo", attn)
+                    + self._proj(layer, "fc2", ff)), (k, v)
         x1 = h_in + self._proj(layer, "wo", attn)
         hn2 = rms_norm(x1, layer["mlp_norm"], cfg.rms_norm_eps)
         return x1 + self._mlp(layer, hn2), (k, v)
@@ -628,7 +632,6 @@ class Transformer(nn.Module):
         ``cache["col"]`` on the device (the host int ``step`` serves the
         cache-full check only), and the step makes no host
         synchronisation, so it can be captured in a CUDA graph."""
-        self._check_generation("decode_step")
         cfg = self.cfg
         if "prompt_width" not in cache:
             raise ValueError(

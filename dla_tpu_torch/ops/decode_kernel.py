@@ -34,6 +34,7 @@ NEG_INF = -1e30
 _GMAX = 8        # query heads per kv head (the kernel's 8-wide mma operand)
 _MAX_SPLIT = 8   # blocks per (batch, kv head) pair, one cluster
 _MIN_COLS = 64   # cache columns a split block keeps at least
+HEAD_DIMS = (64, 80, 96, 128, 256)   # the kernel's instances (80: phi-2)
 
 
 def decode_split(pairs: int, s: int, sms: int) -> int:
@@ -154,8 +155,8 @@ def flash_decode_attention(
     if dev.type != "cuda" or any(x.device != dev for x in tensors):
         raise ValueError("flash_decode_attention: all inputs must share one "
                          "CUDA device")
-    if h % kheads or not 1 <= g <= _GMAX or d not in (64, 96, 128, 256):
-        raise ValueError(f"decode kernel takes head_dim 64/96/128/256 and "
+    if h % kheads or not 1 <= g <= _GMAX or d not in HEAD_DIMS:
+        raise ValueError(f"decode kernel takes head_dim 64/80/96/128/256 and "
                          f"1..8 query heads per kv head, got D={d}, H={h}, "
                          f"K={kheads}")
     if k_cache.dtype not in (torch.int8, torch.bfloat16) \

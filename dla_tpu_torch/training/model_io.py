@@ -1,13 +1,16 @@
-"""Model resolution: checkpoint path / preset name -> ModelBundle
-(``dla_tpu.training.model_io``).
+"""Model resolution: checkpoint path / HF weight directory / preset name
+-> ModelBundle (``dla_tpu.training.model_io``).
 
-The same config keys accept a checkpoint directory written by either
-package (or its ``latest`` pointer) or a registry preset / HF repo id
-(fresh random init), for a causal LM (``load_causal_lm``; llama or phi
-blocks), a distillation teacher (``load_teacher``: a causal LM whose
-vocabulary must be the student's) or a reward model
-(``build_reward_model``). Local HF weight directories are not ported yet
-and raise.
+The same config keys accept, in this order, a checkpoint directory
+written by either package (or its ``latest`` pointer), a local HF weight
+directory (``config.json`` + safetensors or torch bins, through
+``models.hf_import``), or a registry preset / HF repo id (fresh random
+init), for a causal LM (``load_causal_lm``; llama or phi blocks), a
+distillation teacher (``load_teacher``: a causal LM whose vocabulary
+must be the student's) or a reward model (``build_reward_model``: an HF
+directory or causal-LM checkpoint is its backbone, with a fresh head).
+A hub-looking name that is not a local directory is a preset: nothing
+is downloaded.
 """
 from __future__ import annotations
 
@@ -23,6 +26,11 @@ from dla_tpu_torch.checkpoint.checkpointer import (
 )
 from dla_tpu_torch.data.tokenizers import ByteTokenizer, Tokenizer, load_tokenizer
 from dla_tpu_torch.models.config import ModelConfig, get_model_config
+from dla_tpu_torch.models.hf_import import (
+    hf_config_to_model_config,
+    import_hf_weights,
+    read_hf_config,
+)
 from dla_tpu_torch.models.reward import RewardModel
 from dla_tpu_torch.models.transformer import Transformer
 from dla_tpu_torch.models.weights import params_from_jax
@@ -104,16 +112,26 @@ def _device_params(tree, dtype: torch.dtype, device) -> Any:
     return params
 
 
+def _hf_dir_tree(name: str, model_cfg: Dict[str, Any]):
+    """(host numpy params, ModelConfig with the config's overrides but
+    the directory's vocabulary, tokenizer) of a local HF weight
+    directory, else None."""
+    p = Path(name)
+    hf_cfg = read_hf_config(p) if p.is_dir() else None
+    if hf_cfg is None:
+        return None
+    cfg = hf_config_to_model_config(hf_cfg, **{
+        k: v for k, v in _arch_overrides(model_cfg).items()
+        if k != "vocab_size"})
+    tok = _tokenizer_for(name, model_cfg)     # raises before the import
+    return import_hf_weights(p, cfg), cfg, tok
+
+
 def _preset(name: str, model_cfg: Dict[str, Any],
             generator: Optional[torch.Generator], device: torch.device):
     """(ModelConfig, tokenizer) of a registry preset, its vocabulary grown
     to the tokenizer's; checks that ``generator`` can initialise it on
     ``device``."""
-    p = Path(name)
-    if p.is_dir() and (p / "config.json").is_file():
-        raise NotImplementedError(
-            f"{name}: HF weight-directory import is not ported yet "
-            "(ROADMAP.md); load a dla_tpu checkpoint or a preset")
     cfg = get_model_config(name, **_arch_overrides(model_cfg))
     tok = _tokenizer_for(name, model_cfg)
     if getattr(tok, "vocab_size", cfg.vocab_size) > cfg.vocab_size:
@@ -135,12 +153,15 @@ def _check_generator(generator: Optional[torch.Generator],
 def load_causal_lm(name_or_path: str, model_cfg: Dict[str, Any],
                    generator: Optional[torch.Generator] = None,
                    device="cuda") -> ModelBundle:
-    """Resolve a causal LM: checkpoint > registry preset. Parameters land
-    on ``device``; a preset is initialised from ``generator``, which must
-    live on that device."""
+    """Resolve a causal LM: checkpoint > local HF weight directory >
+    registry preset. Parameters land on ``device``; a preset is
+    initialised from ``generator``, which must live on that device."""
     device = torch.device(device)
-    if is_checkpoint_path(name_or_path):
-        tree, cfg, tok = _checkpoint_tree(name_or_path, model_cfg)
+    found = (_checkpoint_tree(name_or_path, model_cfg)
+             if is_checkpoint_path(name_or_path)
+             else _hf_dir_tree(name_or_path, model_cfg))
+    if found is not None:
+        tree, cfg, tok = found
         model = Transformer(cfg)
         return ModelBundle(model, _device_params(tree, model.pdtype, device),
                            tok, cfg)
@@ -170,16 +191,19 @@ def build_reward_model(model_cfg: Dict[str, Any],
                        device="cuda") -> ModelBundle:
     """Reward model from ``model.base_model_name_or_path`` (or
     ``model_name_or_path``) with ``model.pooling`` / ``model.dropout``:
-    a reward checkpoint as saved; a causal-LM checkpoint as a warm start
-    (its ``lm_head`` dropped, a fresh head drawn from ``generator``); or
-    a preset initialised from ``generator``."""
+    a reward checkpoint as saved; a causal-LM checkpoint or a local HF
+    weight directory as a warm start (its ``lm_head`` dropped, a fresh
+    head drawn from ``generator``); or a preset initialised from
+    ``generator``."""
     device = torch.device(device)
     name = (model_cfg.get("base_model_name_or_path")
             or model_cfg.get("model_name_or_path"))
     pooling = model_cfg.get("pooling", "last_token")
     dropout = float(model_cfg.get("dropout", 0.0))
-    if is_checkpoint_path(name):
-        tree, cfg, tok = _checkpoint_tree(name, model_cfg)
+    found = (_checkpoint_tree(name, model_cfg) if is_checkpoint_path(name)
+             else _hf_dir_tree(name, model_cfg))
+    if found is not None:
+        tree, cfg, tok = found
         rm = RewardModel(cfg, pooling=pooling, dropout=dropout)
         warm = "reward_head" not in tree
         if warm:

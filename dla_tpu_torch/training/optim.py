@@ -90,14 +90,14 @@ def build_optimizer(opt_cfg: Dict[str, Any], params: List[torch.Tensor]
     if kind == "adafactor":
         raise NotImplementedError(
             "optimization.optimizer 'adafactor' is not ported yet "
-            "(ROADMAP.md §3, training items); use 'adamw'")
+            "(ROADMAP.md §1, item 2: training options); use 'adamw'")
     if kind != "adamw":
         raise ValueError(f"Unknown optimization.optimizer '{kind}' "
                          "(expected 'adamw' or 'adafactor')")
     if opt_cfg.get("adam_moment_dtype") not in (None, "float32"):
         raise NotImplementedError(
             "optimization.adam_moment_dtype other than float32 is not "
-            "ported yet (ROADMAP.md §3, training items)")
+            "ported yet (ROADMAP.md §1, item 2: training options)")
     opt = torch.optim.AdamW(
         params, lr=0.0,
         betas=(float(opt_cfg.get("adam_beta1", 0.9)),

@@ -119,7 +119,7 @@ class Trainer:
         if str(opt_cfg.get("grad_accum_dtype", "float32")) != "float32":
             raise NotImplementedError(
                 "optimization.grad_accum_dtype other than float32 is not "
-                "ported yet (ROADMAP.md §3, training items)")
+                "ported yet (ROADMAP.md §1, item 2: training options)")
         self.accum = int(opt_cfg["gradient_accumulation_steps"])
         self.micro = int(opt_cfg.get("micro_batch_size", 1))
         self.global_batch = self.micro * self.accum   # one device

@@ -188,8 +188,14 @@ def test_load_causal_lm_checkpoint_preset_and_refusals(tmp_path):
     assert tiny.params["lm_head"].shape == (64, 512)
     with pytest.raises(ValueError):      # presets need a generator
         load_causal_lm("tiny", {"tokenizer": "byte"}, device="cpu")
-    (tmp_path / "config.json").write_text("{}")
-    with pytest.raises(NotImplementedError):
+    # a local HF weight directory: its tokenizer is not read yet, and a
+    # config.json without weight files is refused as the reference does
+    (tmp_path / "config.json").write_text(json.dumps(dict(
+        model_type="llama", vocab_size=128, hidden_size=32,
+        intermediate_size=64, num_hidden_layers=2, num_attention_heads=4)))
+    with pytest.raises(NotImplementedError, match="tokenizer"):
+        load_causal_lm(str(tmp_path), {}, g, device="cpu")
+    with pytest.raises(FileNotFoundError, match="safetensors"):
         load_causal_lm(str(tmp_path), {"tokenizer": "byte"}, g,
                        device="cpu")
 

@@ -4,8 +4,8 @@ leaf's gradient on a tiny phi config (hidden 160 = 2 heads x 80, MHA,
 partial rotary 0.4, 2 layers, vocab 512, T = 128 so that flash is
 eligible in both packages; the JAX side runs its Pallas kernels in
 interpret mode), the parameter tree through ``params_from_jax``, and the
-generation entry points that raise for phi. Inputs come from numpy
-seeds; each test states its tolerance."""
+block variants that still refuse. Inputs come from numpy seeds; each
+test states its tolerance."""
 import dataclasses
 
 import jax
@@ -221,22 +221,11 @@ def test_params_from_jax_carries_the_phi_tree(dtype):
         assert own[path].dtype == getattr(torch, dtype)
 
 
-def test_phi_generation_entry_points_raise():
-    """Phi prefill and decode are not ported: each generation entry point
-    raises NotImplementedError naming ROADMAP.md instead of running the
-    llama block over a phi tree; a gemma2 block and a LoRA phi student
-    still refuse at construction."""
-    _, _, tm, tp = _phi_models()
-    ids = torch.zeros((1, 8), dtype=torch.long)
-    mask = torch.ones_like(ids)
-    calls = [lambda: tm.init_cache(1, 16, torch.device("cpu")),
-             lambda: tm.prefill_external(tp, ids, mask),
-             lambda: tm.prefill(tp, {}, ids, mask),
-             lambda: tm.start_decode(tp, ids, mask, 4),
-             lambda: tm.decode_step(tp, {"prompt_width": 8}, ids[:, 0])]
-    for call in calls:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            call()
+def test_gemma2_and_lora_phi_refused_at_construction():
+    """A gemma2 block and a LoRA phi student refuse at construction,
+    naming ROADMAP.md (phi generation itself is held against the JAX
+    package in test_torch_phi_generation.py)."""
+    _, _, tm, _ = _phi_models()
     for over in (dict(arch="gemma2"), dict(lora_r=4)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             Transformer(dataclasses.replace(tm.cfg, **over))
